@@ -1,7 +1,7 @@
 #!/usr/bin/env python
 """Microbenchmarks of the primitives the join engine is built from, on the
-attached chip. Informs kernel design: what is fast (dense streams, sort
-networks) vs poison (random access) on this TPU generation.
+attached GPU. Informs kernel design: what is fast and what is slow among
+dense streams, sorts, gathers, scatters and searchsorted methods.
 
 Run: python bench/primitives.py [--small]
 """
@@ -11,21 +11,24 @@ import argparse
 import functools
 import json
 import sys
+from pathlib import Path
 
-import jax
-import jax.numpy as jnp
-import numpy as np
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
-from tpujoin.utils.timing import time_fn
-from tpujoin.utils.hw import hbm_peak_gbps
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from tpujoin.utils.hw import (enable_compile_cache, hbm_peak_gbps,  # noqa: E402
+                              require_gpu)
+from tpujoin.utils.timing import time_fn  # noqa: E402
 
 
 def report(name, stat, nbytes):
     gbps = nbytes / stat.seconds / 1e9
-    peak = hbm_peak_gbps() or 1e-9
     print(json.dumps({
-        "bench": name, "seconds": round(stat.seconds, 6),
-        "gbps": round(gbps, 2), "hbm_frac": round(gbps / peak, 4),
+        "bench": name, "seconds": stat.seconds, "gbps": gbps,
+        "hbm_frac": gbps / hbm_peak_gbps(),
     }), flush=True)
 
 
@@ -33,6 +36,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--small", action="store_true")
     args = ap.parse_args()
+    require_gpu("bench/primitives.py")
+    enable_compile_cache()
     N = 10_000_000 if args.small else 100_000_000
     M = N // 10
 
@@ -84,66 +89,6 @@ def main():
     # E5: cumsum
     c = jax.jit(lambda x: jnp.cumsum(x))
     report("cumsum_N", time_fn(c, data), N * 8)
-
-    # E6: Pallas VMEM dynamic gather (vector indices into a VMEM table)
-    try:
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        TBL, TILE = 16384, 65536
-
-        def kern(tbl_ref, idx_ref, out_ref):
-            out_ref[:] = tbl_ref[:][idx_ref[:]]
-
-        @jax.jit
-        def vmem_gather(tbl, indices):
-            return pl.pallas_call(
-                kern,
-                out_shape=jax.ShapeDtypeStruct((TILE,), jnp.int32),
-                in_specs=[pl.BlockSpec(memory_space=pltpu.VMEM),
-                          pl.BlockSpec(memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec(memory_space=pltpu.VMEM),
-            )(tbl, indices)
-
-        tbl = jnp.arange(TBL, dtype=jnp.int32)
-        vidx = jax.random.randint(k2, (TILE,), 0, TBL, dtype=jnp.int32)
-        stat = time_fn(vmem_gather, tbl, vidx)
-        print(json.dumps({
-            "bench": "pallas_vmem_gather_64k_from_16k",
-            "seconds": round(stat.seconds, 6),
-            "gelems_per_sec": round(TILE / stat.seconds / 1e9, 3),
-        }), flush=True)
-    except Exception as e:  # noqa: BLE001
-        print(f"pallas_vmem_gather failed: {type(e).__name__}: {e}",
-              file=sys.stderr)
-
-    # E7: Pallas HBM->VMEM->HBM streaming copy (achievable BW)
-    try:
-        from jax.experimental import pallas as pl
-        from jax.experimental.pallas import tpu as pltpu
-
-        CH = 512 * 1024  # i32 elements per block (2 MB)
-
-        def copy_kern(x_ref, o_ref):
-            o_ref[:] = x_ref[:] * 2
-
-        @jax.jit
-        def stream(x):
-            return pl.pallas_call(
-                copy_kern,
-                grid=(x.shape[0] // CH,),
-                in_specs=[pl.BlockSpec((CH,), lambda i: (i,),
-                                       memory_space=pltpu.VMEM)],
-                out_specs=pl.BlockSpec((CH,), lambda i: (i,),
-                                       memory_space=pltpu.VMEM),
-                out_shape=jax.ShapeDtypeStruct(x.shape, x.dtype),
-            )(x)
-
-        nstream = (N // CH) * CH
-        stat = time_fn(stream, data[:nstream])
-        report("pallas_stream_copy_N", stat, nstream * 8)
-    except Exception as e:  # noqa: BLE001
-        print(f"pallas_stream failed: {type(e).__name__}: {e}", file=sys.stderr)
 
 
 if __name__ == "__main__":

@@ -1,6 +1,6 @@
 // Native correctness oracle + timers for the tpujoin engine.
 //
-// The TPU-native equivalent of the reference's C++ support runtime
+// The engine's equivalent of the reference's C++ support runtime
 // (reference shared_stuff/shared.cpp): the reference verifies every GPU join
 // by recomputing it with O(n*m) nested loops on the host and comparing both
 // results as lexicographically-sorted multisets of (rowID_R, rowID_S) pairs

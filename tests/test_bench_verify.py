@@ -23,8 +23,7 @@ def _join_state(n, m, dom, seed):
     total, nonzero = int(total_a), int(nonzero_a)
     k_cap = round_up(nonzero, 1024)
     cap = round_up(total, bench._VERIFY_WINDOW)
-    r_ids, s_ids, total_dev, fits = mj.probe_materialize(ht, state, k_cap,
-                                                         cap)
+    r_ids, s_ids, total_dev, fits = mj.probe_materialize(ht, state, cap)
     assert bool(fits)
     sid, lo, cnt = mj.probe_rle(ht, state, k_cap)
     return (ht, np.asarray(sid[:nonzero]), np.asarray(lo[:nonzero]),

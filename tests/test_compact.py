@@ -1,139 +1,116 @@
-"""Pallas stream-compaction kernel vs numpy boolean-mask compaction.
-
-The kernel replaces the materialize phase's 3-ary compaction sort
-(kernels/compact.py); the ground truth is plain a[flag] on the host. All
-cases share the (out_step=1024, slab=4096) CPU profile so the module
-compiles two interpret-mode executables, not one per case.
-"""
+"""Stream compaction on plain XLA — the RLE result's matched-row
+compaction (exclusive cumsum of the mask + one dropping scatter per
+column), the packed-sort compactions of filter / aggregate / pushdown —
+against numpy boolean-mask compaction."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from tpujoin.kernels.compact import compact3, pick_out_step
+from tpujoin.oracle import check_group_agg
+from tpujoin.ops import aggregate as agg
+from tpujoin.ops import filter as flt
+from tpujoin.ops import merge_join as mj
+from tpujoin.ops.hash_join import build
 
-OUT, SLAB = 1024, 4096
-N = 8192  # one shared input width -> one compiled executable
+N = 8192
 
 
-def _run(cnt, lo, sid, k_cap):
-    return compact3(jnp.asarray(lo), jnp.asarray(cnt), jnp.asarray(sid),
-                    k_cap, out_step=OUT, slab=SLAB, interpret=True)
+def _state(sel, seed, n=N):
+    rng = np.random.default_rng(seed)
+    flag = rng.random(n) < sel
+    cnt = np.where(flag, rng.integers(1, 6, n), 0).astype(np.int32)
+    lo = np.sort(rng.integers(0, 1 << 20, n)).astype(np.int32)
+    sid = rng.permutation(n).astype(np.int32)
+    state = mj.SortedProbe(jnp.asarray(sid), jnp.asarray(lo),
+                           jnp.asarray(cnt))
+    return state, cnt, lo, sid, flag
+
+
+def _compact(state, k_cap):
+    return [np.asarray(a) for a in mj._compact(state, k_cap)]
 
 
 @pytest.mark.parametrize("sel,seed", [
     (0.95, 0), (0.55, 1), (0.30, 2), (1.0, 3),
 ])
 def test_matches_mask_compaction(sel, seed):
-    rng = np.random.default_rng(seed)
-    flag = rng.random(N) < sel
-    cnt = np.where(flag, rng.integers(1, 6, N), 0).astype(np.int32)
-    lo = np.sort(rng.integers(0, 1 << 20, N)).astype(np.int32)
-    sid = rng.permutation(N).astype(np.int32)
+    state, cnt, lo, sid, flag = _state(sel, seed)
     nonzero = int(flag.sum())
-    k_cap = 4096
-
-    lo_c, cnt_c, sid_c, fits = _run(cnt, lo, sid, k_cap)
-    assert bool(fits)
-    lo_c, cnt_c, sid_c = map(np.asarray, (lo_c, cnt_c, sid_c))
-    k = min(nonzero, k_cap)
-    np.testing.assert_array_equal(lo_c[:k], lo[flag][:k])
-    np.testing.assert_array_equal(cnt_c[:k], cnt[flag][:k])
-    np.testing.assert_array_equal(sid_c[:k], sid[flag][:k])
-    # tail is zero-padded: no sentinel can reach a DMA/slab offset
+    k_cap = 8192
+    lo_c, cnt_c, sid_c = _compact(state, k_cap)
+    np.testing.assert_array_equal(lo_c[:nonzero], lo[flag])
+    np.testing.assert_array_equal(cnt_c[:nonzero], cnt[flag])
+    np.testing.assert_array_equal(sid_c[:nonzero], sid[flag])
+    # the tail is zero-padded
     assert np.all(lo_c[nonzero:] == 0)
     assert np.all(cnt_c[nonzero:] == 0)
 
 
-def test_sparse_does_not_fit():
-    """Coverage envelope: at ~2% selectivity one 1024-output step needs
-    ~50k input rows > the 4096-row slab -> fits must be False."""
-    rng = np.random.default_rng(7)
-    flag = rng.random(N) < 0.02
-    flag[:64] = True  # make sure >1 step's worth exists... (no: 1 step)
-    cnt = np.where(flag, 1, 0).astype(np.int32)
-    lo = np.arange(N, dtype=np.int32)
-    sid = np.arange(N, dtype=np.int32)
+def test_sparse_selectivity():
+    state, cnt, lo, sid, flag = _state(0.02, 7)
     nonzero = int(flag.sum())
-    if nonzero <= OUT:
-        # force two steps' worth of matches spread sparsely
-        flag = np.zeros(N, bool)
-        flag[:: N // (OUT + 512)] = True
-        cnt = np.where(flag, 1, 0).astype(np.int32)
-    *_, fits = _run(cnt, lo, sid, 2048)
-    assert not bool(fits)
+    lo_c, cnt_c, sid_c = _compact(state, 1024)
+    np.testing.assert_array_equal(sid_c[:nonzero], sid[flag])
+    np.testing.assert_array_equal(lo_c[:nonzero], lo[flag])
 
 
 def test_empty_and_full():
-    lo = np.arange(N, dtype=np.int32)
-    sid = np.arange(N, dtype=np.int32)
-    zero = np.zeros(N, np.int32)
-    lo_c, cnt_c, sid_c, fits = _run(zero, lo, sid, 1024)
-    assert bool(fits)
-    assert np.all(np.asarray(cnt_c) == 0)
+    lo = jnp.arange(N, dtype=jnp.int32)
+    sid = jnp.arange(N, dtype=jnp.int32)
+    zero = mj.SortedProbe(sid, lo, jnp.zeros(N, jnp.int32))
+    _, cnt_c, _ = _compact(zero, 1024)
+    assert np.all(cnt_c == 0)
 
-    ones = np.ones(N, np.int32)
-    lo_c, cnt_c, sid_c, fits = _run(ones, lo, sid, 4096)
-    assert bool(fits)
-    np.testing.assert_array_equal(np.asarray(sid_c), sid[:4096])
+    full = mj.SortedProbe(sid, lo, jnp.ones(N, jnp.int32))
+    _, _, sid_c = _compact(full, N)
+    np.testing.assert_array_equal(sid_c, np.arange(N))
 
 
-def test_pick_out_step():
-    assert pick_out_step(100_000_000, 9_500_000) in (2048, 4096)
-    assert pick_out_step(100_000_000, 60_000_000) == 8192
-    assert pick_out_step(100_000_000, 100_000) is None  # 0.1%: sort path
-    assert pick_out_step(100, 0) is None
+def test_capacity_below_nonzero_keeps_prefix():
+    state, cnt, lo, sid, flag = _state(0.5, 11)
+    lo_c, cnt_c, sid_c = _compact(state, 1024)
+    np.testing.assert_array_equal(sid_c, sid[flag][:1024])
+    np.testing.assert_array_equal(cnt_c, cnt[flag][:1024])
 
 
 @pytest.mark.parametrize("sel,seed", [(0.5, 0), (0.9, 1), (1.0, 2)])
-def test_compact_ids(sel, seed):
-    from tpujoin.kernels.compact import compact_ids
-
+def test_filter_materialize_ids(sel, seed):
     rng = np.random.default_rng(seed)
     mask = rng.random(N) < sel
     nonzero = int(mask.sum())
     k_cap = 4096
-    ids, total, fits = compact_ids(jnp.asarray(mask), k_cap,
-                                   out_step=OUT, slab=SLAB, interpret=True)
-    assert bool(fits) and int(total) == nonzero
+    ids, total = flt.filter_materialize(jnp.asarray(mask), k_cap)
+    assert int(total) == nonzero
     ids = np.asarray(ids)
     k = min(nonzero, k_cap)
     np.testing.assert_array_equal(ids[:k], np.flatnonzero(mask)[:k])
     assert np.all(ids[nonzero:] == -1)
 
 
-def test_filter_materialize_kernel_matches_sort():
-    from tpujoin.ops import filter as flt
+def test_filter_table_matches_numpy():
+    from tpujoin.core.table import Table
 
     rng = np.random.default_rng(3)
-    mask = jnp.asarray(rng.random(N) < 0.6)
-    cap = 8192
-    ids_s, total_s = flt.filter_materialize(mask, cap)
-    ids_k, total_k, fits = flt.filter_materialize_kernel(mask, cap, OUT)
-    assert bool(fits) and int(total_s) == int(total_k)
-    t = int(total_s)
-    np.testing.assert_array_equal(np.asarray(ids_s[:t]),
-                                  np.asarray(ids_k[:t]))
+    vals = rng.random(N).astype(np.float32)
+    t = Table({"v": jnp.asarray(vals), "id": jnp.arange(N, dtype=jnp.int32)})
+    out = flt.filter_table(t, lambda v: v < 0.6, "v", pad_multiple=1024)
+    np.testing.assert_array_equal(np.asarray(out["id"]),
+                                  np.flatnonzero(vals < 0.6))
 
 
-def test_group_materialize_kernel_matches_sort():
-    from tpujoin.ops import aggregate as agg
-
+def test_group_materialize_matches_numpy():
     rng = np.random.default_rng(5)
-    keys = jnp.asarray(rng.integers(1, 3000, N).astype(np.int32))
-    cap = 4096
-    gk_s, gc_s, ng_s = agg.group_materialize(keys, cap)
-    gk_k, gc_k, ng_k, fits = agg.group_materialize(keys, cap,
-                                                   compact_step=OUT)
-    assert bool(fits) and int(ng_s) == int(ng_k)
-    g = int(ng_s)
-    np.testing.assert_array_equal(np.asarray(gk_s[:g]), np.asarray(gk_k[:g]))
-    np.testing.assert_array_equal(np.asarray(gc_s[:g]), np.asarray(gc_k[:g]))
+    keys = rng.integers(1, 3000, N).astype(np.int32)
+    gk, gc, ng = agg.group_materialize(jnp.asarray(keys), 4096)
+    uk, uc = np.unique(keys, return_counts=True)
+    g = int(ng)
+    assert g == len(uk)
+    np.testing.assert_array_equal(np.asarray(gk[:g]), uk)
+    np.testing.assert_array_equal(np.asarray(gc[:g]), uc)
+    assert np.all(np.asarray(gk[g:]) == -1)
 
 
-def test_probe_rle_compact_step_matches_sort():
-    from tpujoin.ops import merge_join as mj
-    from tpujoin.ops.hash_join import build
-
+def test_probe_rle_matches_numpy():
     rng = np.random.default_rng(13)
     bk = rng.integers(1, 400, 4096).astype(np.int32)
     pk = rng.integers(1, 1200, 4096).astype(np.int32)
@@ -141,88 +118,73 @@ def test_probe_rle_compact_step_matches_sort():
     state, _, nonzero_a = mj.probe_count(ht, jnp.asarray(pk))
     nonzero = int(nonzero_a)
     assert 0 < nonzero < 4096
-    k_cap = 4096
-    sid0, lo0, cnt0 = mj.probe_rle(ht, state, k_cap)
-    sid1, lo1, cnt1, fits = mj.probe_rle(ht, state, k_cap,
-                                         compact_step=OUT)
-    assert bool(fits)
-    # the two paths may order ties differently (the compaction sort is
-    # unstable; ties share lo AND cnt, so only the ROW multiset is the
-    # contract) — compare rows as a sorted multiset
-    def rows(sid, lo, cnt):
-        a = np.stack([np.asarray(sid[:nonzero]), np.asarray(lo[:nonzero]),
-                      np.asarray(cnt[:nonzero])], axis=1)
-        return a[np.lexsort(a.T[::-1])]
-    np.testing.assert_array_equal(rows(sid0, lo0, cnt0),
-                                  rows(sid1, lo1, cnt1))
+    sid, lo, cnt = (np.asarray(a)[:nonzero]
+                    for a in mj.probe_rle(ht, state, 4096))
+    sk = np.sort(bk)
+    np.testing.assert_array_equal(lo, np.searchsorted(sk, pk[sid], "left"))
+    np.testing.assert_array_equal(
+        cnt, np.searchsorted(sk, pk[sid], "right") - lo)
+    # every matched probe row exactly once, in key order
+    np.testing.assert_array_equal(np.sort(sid),
+                                  np.flatnonzero(np.isin(pk, bk)))
+    assert np.all(np.diff(pk[sid]) >= 0)
 
 
 def test_probe_materialize_integration():
-    """probe_materialize(compact_step=...) must agree with the sort-based
-    path end-to-end (same pair MULTISET — the result order is
-    unspecified: the sort path's compaction is an unstable sort)."""
-    from tpujoin.ops import merge_join as mj
-    from tpujoin.ops.hash_join import build
+    from tpujoin import oracle
 
     rng = np.random.default_rng(11)
     bk = rng.integers(1, 600, 4096).astype(np.int32)
     pk = rng.integers(1, 2000, 4096).astype(np.int32)  # ~30% matched
     ht = build(jnp.asarray(bk))
-    state, total_a, nonzero_a = mj.probe_count(ht, jnp.asarray(pk))
-    total, nonzero = int(total_a), int(nonzero_a)
-    assert 0 < nonzero < 4096
+    state, total_a, _ = mj.probe_count(ht, jnp.asarray(pk))
+    total = int(total_a)
     cap = ((total + 1023) // 1024) * 1024
-    k_cap = 4096
-    r0, s0, t0, f0 = mj.probe_materialize(ht, state, k_cap, cap)
-    r1, s1, t1, f1 = mj.probe_materialize(ht, state, k_cap, cap,
-                                          compact_step=OUT)
-    assert bool(f0) and bool(f1)
-
-    def pairs(r, s):
-        a = np.stack([np.asarray(r[:total]), np.asarray(s[:total])], axis=1)
-        return a[np.lexsort(a.T[::-1])]
-    np.testing.assert_array_equal(pairs(r0, s0), pairs(r1, s1))
-
-
-@pytest.mark.parametrize("sel,seed", [(0.6, 5), (0.35, 6)])
-def test_compact_cols_matches_mask(sel, seed):
-    """Variadic-column compaction (the aggregate value path's kernel,
-    VERDICT r4 #6) vs numpy a[mask] on every column."""
-    from tpujoin.kernels.compact import compact_cols
-
-    rng = np.random.default_rng(seed)
-    mask = (rng.random(N) < sel).astype(np.int32)
-    cols = [rng.integers(-1000, 1 << 20, N).astype(np.int32)
-            for _ in range(6)]
-    k_cap = OUT * 2
-    outs, nonzero, fits = compact_cols(
-        jnp.asarray(mask), tuple(jnp.asarray(c) for c in cols), k_cap,
-        out_step=OUT, slab=SLAB, interpret=True)
+    r, s, _, fits = mj.probe_materialize(ht, state, cap)
     assert bool(fits)
-    nz = int(nonzero)
-    assert nz == int(mask.sum())
-    m = min(nz, k_cap)
-    for got, src in zip(outs, cols):
-        np.testing.assert_array_equal(np.asarray(got)[:m], src[mask > 0][:m])
-        np.testing.assert_array_equal(np.asarray(got)[m:], 0)
+    assert oracle.check_join(bk, pk, np.asarray(r[:total]),
+                             np.asarray(s[:total])) == 1
 
 
-def test_group_agg_materialize_kernel_matches_gather_path():
-    """group_agg_materialize(compact_step=...) (one 6-column compaction)
-    must agree exactly with the gather-based fallback on keys, counts,
-    exact i64 sums, mins and maxs — including negative values."""
-    from tpujoin.ops.aggregate import group_agg_materialize
+@pytest.mark.parametrize("dom,seed", [(700, 5), (60, 6)])
+def test_group_agg_columns_match_numpy(dom, seed):
+    rng = np.random.default_rng(seed)
+    keys = rng.integers(0, dom, N).astype(np.int32)
+    vals = rng.integers(-1000, 1 << 20, N).astype(np.int32)
+    gk, gc, (sh, slo), mn, mx, ng = agg.group_agg_materialize(
+        jnp.asarray(keys), jnp.asarray(vals), 1024)
+    g = int(ng)
+    sums = ((np.asarray(sh[:g]).astype(np.int64) << 32)
+            | np.asarray(slo[:g]).astype(np.int64))
+    assert check_group_agg(keys, vals, np.asarray(gk[:g]),
+                           np.asarray(gc[:g]), sums, np.asarray(mn[:g]),
+                           np.asarray(mx[:g]))
+    assert np.all(np.asarray(gc[g:]) == 0)
 
+
+def test_group_agg_negative_values_match_numpy():
     rng = np.random.default_rng(9)
     keys = rng.integers(0, 700, N).astype(np.int32)
     vals = rng.integers(-1_000_000, 1_000_000, N).astype(np.int32)
-    cap = 1024
-    gk, gc, (sh, slo), mn, mx, ng = group_agg_materialize(
-        jnp.asarray(keys), jnp.asarray(vals), cap)
-    gk2, gc2, (sh2, slo2), mn2, mx2, ng2, fits = group_agg_materialize(
-        jnp.asarray(keys), jnp.asarray(vals), cap, compact_step=OUT)
-    assert bool(fits) and int(ng) == int(ng2)
-    g = int(ng)
-    for a, b in ((gk, gk2), (gc, gc2), (sh, sh2), (slo, slo2), (mn, mn2),
-                 (mx, mx2)):
-        np.testing.assert_array_equal(np.asarray(a)[:g], np.asarray(b)[:g])
+    gk, gc, sums, mn, mx = agg.group_by_agg(keys, vals)
+    assert check_group_agg(keys, vals, gk, gc, sums, mn, mx)
+
+
+def test_pushdown_compactions_agree():
+    """The pushdown's two packed-sort compactions (fail bit above the id,
+    and the explicit flag sort for >= 2^30 rows) keep the same rows."""
+    from tpujoin.ops.multi_join import _push_sort2, _push_sort3
+
+    rng = np.random.default_rng(17)
+    hk = jnp.asarray(rng.integers(0, 1 << 30, N).astype(np.int32))
+    mask = jnp.asarray(rng.random(N) < 0.4)
+    pad = np.int32(0x7FFFFFFE)
+    ids2, hk2 = _push_sort2(hk, mask, 4096, pad)
+    ids3, hk3 = _push_sort3(hk, mask, 4096, pad)
+    total = int(np.asarray(mask).sum())
+    np.testing.assert_array_equal(np.asarray(ids2[:total]),
+                                  np.flatnonzero(np.asarray(mask)))
+    np.testing.assert_array_equal(np.sort(np.asarray(ids3[:total])),
+                                  np.asarray(ids2[:total]))
+    np.testing.assert_array_equal(np.asarray(hk2[total:]), pad)
+    np.testing.assert_array_equal(np.asarray(ids3[total:]), -1)

@@ -149,3 +149,36 @@ def test_distributed_semi_anti_match_single_chip():
     np.testing.assert_array_equal(semi_d, semi_join(rk, sk))
     np.testing.assert_array_equal(anti_d, anti_join(rk, sk))
     assert len(semi_d) + len(anti_d) == len(sk)
+
+
+@pytest.mark.parametrize("n,m,dom,parts", [
+    (3000, 2000, 500, 8),
+    (5000, 7000, 20, 64),      # heavy duplication
+    (100, 100, 10**9, 1),      # almost no matches
+    (50, 60, 5, 256),          # more classes than keys
+])
+def test_host_join_expectation_matches_oracle_pairs(n, m, dom, parts):
+    """The NumPy expectation behind the shuffle join's full-coverage
+    checks, against the oracle's explicit pair list."""
+    from tpujoin.utils.verify import (expected_multiset_sum_pairs,
+                                      host_join_expectation)
+
+    rk = _rand(n, -dom, dom, n)
+    sk = _rand(m, -dom, dom, m)
+    pairs = oracle._numpy_join_pairs(rk, sk)
+    expected = (len(pairs),
+                expected_multiset_sum_pairs(pairs[:, 0], pairs[:, 1]))
+    assert host_join_expectation(rk, sk, parts=parts) == expected
+
+
+@pytest.mark.parametrize("rows", [0, 1, 200, 65_536, 10**8 + 7])
+def test_send_capacity_granule(rows):
+    """Measured send segments get 64 rows of headroom and a granule of at
+    most ~1.6% of the size, so similar runs share one executable."""
+    from tpujoin.parallel.shuffle_join import _coarse_cap
+
+    cap = _coarse_cap(rows)
+    assert cap >= rows + 64
+    assert cap % 256 == 0
+    assert cap <= max(rows + 64 + 256, (rows + 64) * 1.016 + 1)
+    assert _coarse_cap(rows + 1) >= cap

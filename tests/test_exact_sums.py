@@ -1,8 +1,7 @@
-"""Unit tests for the round-4 exact wide-sum helpers: blockwise i32
-partial sums (merge_join.exact_sum_i32) and the blockwise exact i64
-prefix inside group_agg_materialize — the paths that replaced full-width
-emulated-x64 reductions. Exactness must hold at extreme i32 values and
-at sizes around the 4096 block boundary."""
+"""Exact wide sums: the int64 pair total of the count phase
+(merge_join.exact_sum_i32) and the int64 prefix sums inside
+group_agg_materialize. Exactness must hold at extreme i32 values and
+at sizes that overflow any 32-bit accumulator."""
 from __future__ import annotations
 
 import jax.numpy as jnp
@@ -51,22 +50,3 @@ def test_group_agg_negative_values_exact():
     np.testing.assert_array_equal(gmax.astype(np.int64),
                                   np.maximum.reduceat(vs, bnd))
 
-
-def test_pick_out_config_envelope():
-    from tpujoin.kernels.compact import (ALIGN, COVER_SLACK, MAX_SLAB,
-                                         pick_out_config)
-
-    # every returned config must satisfy the kernel's own preconditions
-    # and its coverage inequality
-    for n, nz in ((100_000_000, 50_000_000), (100_000_000, 9_500_000),
-                  (100_000_000, 1_000_000), (1_000_000, 999_999),
-                  (1 << 20, 1 << 10)):
-        cfg = pick_out_config(n, nz)
-        if cfg is None:
-            continue
-        out, slab = cfg
-        assert out % ALIGN == 0 and slab % ALIGN == 0
-        assert slab >= out + 2 * ALIGN
-        assert slab <= MAX_SLAB
-        assert out * COVER_SLACK / (nz / n) + 3 * ALIGN <= slab + 1
-    assert pick_out_config(10, 0) is None

@@ -61,7 +61,7 @@ def test_group_by_agg_matches_numpy(n, dom, seed):
 
 def test_group_by_agg_exact_at_adversarial_scale():
     """Sums far beyond f32's 2^24 integer range and beyond i32 must stay
-    exact (the fix VERDICT r1 'weak' #4 demanded): 200k values of ~2^30
+    exact: 200k values of ~2^30
     in one group sums to ~2^47."""
     n = 200_000
     keys = np.ones(n, np.int32)

@@ -1,4 +1,4 @@
-"""v2 (sort-merge Pallas) pipeline: multiset parity with oracle and v1."""
+"""v2 (sort-merge) pipeline: multiset parity with oracle and v1."""
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,7 +7,7 @@ import jax
 from tpujoin import oracle
 from tpujoin.core import datagen
 from tpujoin.parallel.mesh import make_mesh
-from tpujoin.parallel.skew import distributed_hash_join_skew
+from tpujoin.parallel.skew import distributed_hash_join_skew, run_skew_join
 
 needs_devices = pytest.mark.skipif(
     len(jax.devices()) < 8, reason="needs 8 emulated devices")
@@ -78,3 +78,24 @@ def test_skew_balances_send_buffers():
     r2, s2 = distributed_hash_join(rk, sk, mesh=make_mesh(8),
                                    expected_matches=exp)
     assert oracle.check_join(rk, sk, r2, s2) == 1
+
+
+@needs_devices
+@pytest.mark.parametrize("heavy", [False, True])
+def test_replica_telemetry(heavy):
+    """The replica counts in the telemetry say whether splitting fired: a
+    key on more build rows than one device's share makes the probe's rows
+    of that key replicas; uniform keys replicate nothing."""
+    rng = np.random.default_rng(4)
+    rk = rng.integers(1, 1000, 4000).astype(np.int32)
+    sk = rng.integers(1, 1000, 4000).astype(np.int32)
+    if heavy:
+        rk[::3][:600] = 999
+        sk[[5, 1005, 2005]] = 999
+    _, _, totals, ovf = run_skew_join(rk, sk, mesh=make_mesh(8),
+                                      expected_matches=oracle.join_count(rk, sk))
+    assert int(np.asarray(totals).sum()) == oracle.join_count(rk, sk)
+    replicas = int(ovf[3]) + int(ovf[4])
+    assert (replicas > 0) == heavy
+    if heavy:
+        assert ovf[4] > 0   # the probe side is the lighter one: replicated

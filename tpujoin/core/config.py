@@ -26,7 +26,7 @@ class JoinConfig:
     distribution: str = "uniform"   # "uniform" | "zipf"
     zipf_s: float = 1.0
     seed: int = 0
-    # engine knobs (the TPU analogue of hashTableSize/threadsPerBlock):
+    # engine knobs (the engine's analogue of hashTableSize/threadsPerBlock):
     probe_chunk_rows: int = 8 * 1024 * 1024   # rows of probe side per device pass
     result_pad_multiple: int = 1 << 20        # result capacity rounding granule
 

@@ -41,7 +41,7 @@ def zipf_keys(
     onto few keys. Since the pdf is locally flat at ULP scale, the exact
     within-bucket conditional is uniform — so an integer jitter of one
     quantization bucket restores key-domain fidelity without changing the
-    distribution (TPU has no f64 to sample in directly).
+    distribution (sampling stays in f32, the dtype JAX uses by default).
     """
     domain = key_max - key_min + 1
     ku, kj = jax.random.split(key)

@@ -4,11 +4,11 @@ One of the extension operators BASELINE.json requires ("hash aggregate
 (group-by count), 100M rows"); the reference names aggregation as future
 work (reference projectDescription.md:20-32).
 
-TPU design: no hash table at all — sort the keys (the same primitive that
+Design: no hash table at all — sort the keys (the same primitive that
 backs the join build), mark run boundaries, and compact boundary positions.
 Group counts are adjacent-boundary differences. Entirely vectorized:
-sort + one cumsum + one scatter; skew (a heavy key) costs nothing because a
-run's length never enters a loop bound.
+one sort and one packed-sort compaction of the boundaries; skew (a heavy
+key) costs nothing because a run's length never enters a loop bound.
 """
 from __future__ import annotations
 
@@ -32,29 +32,16 @@ def group_count(keys: jax.Array) -> jax.Array:
     return jnp.sum(is_boundary.astype(jnp.int32))
 
 
-@functools.partial(jax.jit, static_argnames=("capacity", "compact_step"))
-def group_materialize(keys: jax.Array, capacity: int,
-                      compact_step: int | None = None):
+@functools.partial(jax.jit, static_argnames=("capacity",))
+def group_materialize(keys: jax.Array, capacity: int):
     """Materialize phase: (unique_keys, counts, num_groups), padded to
-    capacity (pad keys = -1, pad counts = 0).
-
-    ``compact_step`` (static) compacts the boundary positions with the
-    Pallas stream-compaction kernel instead of the packed sort (chosen by
-    the driver from the host-known group count); the returned tuple then
-    carries the kernel's coverage flag as an extra last element and the
-    driver falls back on False."""
+    capacity (pad keys = -1, pad counts = 0)."""
     n = keys.shape[0]
     sk = jax.lax.sort(keys, is_stable=False)
     is_boundary = jnp.concatenate(
         [jnp.ones((1,), jnp.bool_), sk[1:] != sk[:-1]]
     )
-    if compact_step is None:
-        starts, num_groups = filter_materialize(is_boundary, capacity)
-        cfits = None
-    else:
-        from tpujoin.ops.filter import filter_materialize_kernel
-        starts, num_groups, cfits = filter_materialize_kernel(
-            is_boundary, capacity, compact_step)
+    starts, num_groups = filter_materialize(is_boundary, capacity)
     valid = starts >= 0
     safe_starts = jnp.where(valid, starts, 0)
     group_keys = jnp.where(valid, jnp.take(sk, safe_starts), -1)
@@ -65,39 +52,22 @@ def group_materialize(keys: jax.Array, capacity: int,
     is_last = jnp.arange(capacity, dtype=jnp.int32) == (num_groups - 1)
     ends = jnp.where(is_last, n, next_start)
     counts = jnp.where(valid, ends - safe_starts, 0)
-    out = (group_keys.astype(jnp.int32), counts.astype(jnp.int32),
-           num_groups)
-    return out if cfits is None else out + (cfits,)
+    return group_keys.astype(jnp.int32), counts.astype(jnp.int32), num_groups
 
 
-@functools.partial(jax.jit, static_argnames=("capacity", "compact_step"))
-def group_agg_materialize(keys: jax.Array, values: jax.Array, capacity: int,
-                          compact_step: int | None = None):
+@functools.partial(jax.jit, static_argnames=("capacity",))
+def group_agg_materialize(keys: jax.Array, values: jax.Array, capacity: int):
     """Per-group (count, sum, min, max) over a value column, gather-light.
 
-    Sort (key, value) pairs; group sums come from cumsum differences at the
-    G group boundaries, min/max from the first/last value of each run
+    Sort (key, value) pairs; group sums come from prefix-sum differences at
+    the G group boundaries, min/max from the first/last value of each run
     (values sorted within a key run because value is the sort tiebreaker) —
     every gather is G-sized, never row-count-sized. Returns
     (group_keys, counts, (sum_hi, sum_lo), mins, maxs, num_groups), padded
     to capacity (pad keys -1, counts 0). Sums are EXACT 64-bit integers
-    split into (hi i32, lo u32) words: the cumsum runs in emulated i64
-    (x64 scope local to this trace) so 100M-row sums of 1e9-scale values
-    never lose integer precision — combine with
-    ``(hi.astype(int64) << 32) | lo``.
-
-    ``compact_step`` (static) routes the whole boundary materialize
-    through ONE variadic-column Pallas compaction
-    (kernels.compact.compact_cols): the columns (key, row index, value,
-    previous value, previous-prefix-sum hi/lo) are compacted at the
-    group-start mask in a single pass, and every per-group statistic
-    falls out of adjacent-slot arithmetic on the compacted columns — no
-    O(G) element gathers at all. (VERDICT r4 #6: the gather form below
-    paid five O(G) gathers at the ~73M idx/s floor — ~0.7 s of its
-    2.29 s at 100M rows/10M groups; design table
-    exp/agg_value_variants.py.) The returned tuple then carries the
-    kernel's coverage flag as an extra last element and the driver falls
-    back to the gather form on False.
+    split into (hi i32, lo u32) words: the prefix sum runs in i64 (x64
+    scope local to this trace) so 100M-row sums of 1e9-scale values never
+    lose integer precision — combine with ``(hi.astype(int64) << 32) | lo``.
     """
     n = keys.shape[0]
     # num_keys=2: value is a sort key too, so each key run has its values
@@ -106,74 +76,10 @@ def group_agg_materialize(keys: jax.Array, values: jax.Array, capacity: int,
     sk, sv = jax.lax.sort((keys, values), num_keys=2, is_stable=False)
     is_boundary = jnp.concatenate(
         [jnp.ones((1,), jnp.bool_), sk[1:] != sk[:-1]])
-    # exact prefix sums via inclusive cumsum in i64 — computed BLOCKWISE:
-    # per-4096-block i32 cumsums of the value's (hi16, lo16) halves are
-    # overflow-safe (|hi|<=32768*4096 < 2^31, lo<=65535*4096 < 2^31;
-    # arithmetic shift keeps negatives exact since
-    # v == (v >> 16 << 16) + (v & 0xFFFF)), so only block offsets and
-    # ONE add per element run in emulated x64 — measured 0.096 s vs
-    # 0.199 s for the full-width emulated cumsum at 100M
-    blk = 4096
-    m_main = (n // blk) * blk
-    vm = jax.lax.slice_in_dim(sv, 0, m_main).reshape(-1, blk)
-    chi = jnp.cumsum(jax.lax.shift_right_arithmetic(vm, jnp.int32(16)),
-                     axis=1)
-    clo = jnp.cumsum(vm & jnp.int32(0xFFFF), axis=1)
     with jax.enable_x64(True):
-        btot = ((chi[:, -1].astype(jnp.int64) << 16)
-                + clo[:, -1].astype(jnp.int64))
-        boff = jnp.cumsum(btot) - btot
-        cs_main = (boff[:, None] + (chi.astype(jnp.int64) << 16)
-                   + clo.astype(jnp.int64)).reshape(-1)
-        tail = jax.lax.slice_in_dim(sv, m_main, n).astype(jnp.int64)
-        tail_base = cs_main[-1] if m_main else jnp.int64(0)
-        cs = jnp.concatenate([cs_main, tail_base + jnp.cumsum(tail)])
-        total64 = cs[-1]
+        cs = jnp.cumsum(sv.astype(jnp.int64))
 
     cap_i = jnp.arange(capacity, dtype=jnp.int32)
-    if compact_step is not None:
-        from tpujoin.kernels.compact import compact_cols
-
-        with jax.enable_x64(True):
-            # exclusive prefix sum at each row (cs of the PREVIOUS row),
-            # split into i32 words for the kernel
-            cs_prev = jnp.concatenate([jnp.zeros((1,), jnp.int64),
-                                       cs[:-1]])
-            ph = (cs_prev >> 32).astype(jnp.int32)
-            plo = (cs_prev & jnp.int64(0xFFFFFFFF)).astype(jnp.uint32)
-        sv_prev = jnp.concatenate([jnp.zeros((1,), jnp.int32), sv[:-1]])
-        idx = jnp.arange(n, dtype=jnp.int32)
-        (gk_c, idx_c, min_c, pmax_c, ph_c, plo_c), num_groups, cfits = \
-            compact_cols(is_boundary.astype(jnp.int32),
-                         (sk, idx, sv, sv_prev, ph,
-                          plo.astype(jnp.int32)),
-                         capacity, out_step=compact_step)
-        valid = cap_i < num_groups
-        is_last = cap_i == (num_groups - 1)
-        group_keys = jnp.where(valid, gk_c, -1)
-        nxt_idx = jnp.concatenate([idx_c[1:], jnp.zeros((1,), jnp.int32)])
-        counts = jnp.where(valid,
-                           jnp.where(is_last, n, nxt_idx) - idx_c, 0)
-        mins = jnp.where(valid, min_c, 0)
-        # group g's max = value before group g+1's start (the last group
-        # reads the global last value)
-        nxt_pmax = jnp.concatenate([pmax_c[1:],
-                                    jnp.zeros((1,), jnp.int32)])
-        maxs = jnp.where(valid,
-                         jnp.where(is_last, sv[n - 1], nxt_pmax), 0)
-        with jax.enable_x64(True):
-            pre = ((ph_c.astype(jnp.int64) << 32)
-                   | plo_c.astype(jnp.uint32).astype(jnp.int64))
-            nxt_pre = jnp.concatenate([pre[1:], jnp.zeros((1,),
-                                                          jnp.int64)])
-            sums64 = jnp.where(valid,
-                               jnp.where(is_last, total64, nxt_pre) - pre,
-                               jnp.int64(0))
-            sums_hi = (sums64 >> 32).astype(jnp.int32)
-            sums_lo = (sums64 & jnp.int64(0xFFFFFFFF)).astype(jnp.uint32)
-        return (group_keys, counts, (sums_hi, sums_lo), mins, maxs,
-                num_groups, cfits)
-
     starts, num_groups = filter_materialize(is_boundary, capacity)
     valid = starts >= 0
     safe_starts = jnp.where(valid, starts, 0)
@@ -200,29 +106,15 @@ def group_agg_materialize(keys: jax.Array, values: jax.Array, capacity: int,
 
 def group_by_agg(keys, values, *, pad_multiple: int = 1 << 16):
     """Driver: exact-size per-group (key, count, sum, min, max) as numpy.
-    Sums are exact int64 (no float rounding at any scale). Boundary
-    compaction runs on the Pallas stream-compaction kernel when the group
-    density fits its coverage envelope (TPU only), packed sort
-    otherwise — the same policy as :func:`group_by_count`."""
+    Sums are exact int64 (no float rounding at any scale)."""
     keys = jnp.asarray(keys)
     values = jnp.asarray(values)
     ngroups = int(group_count(keys))
     if ngroups == 0:
         e = np.empty(0, np.int32)
         return e, e, np.empty(0, np.int64), e, e
-    cap = round_up(ngroups, pad_multiple)
-    out = None
-    if jax.default_backend() != "cpu":
-        from tpujoin.kernels.compact import pick_out_step
-        cstep = pick_out_step(int(keys.shape[0]), ngroups)
-        if cstep is not None:
-            *res, fits = group_agg_materialize(keys, values, cap,
-                                               compact_step=cstep)
-            if bool(fits):
-                out = res
-    if out is None:
-        out = group_agg_materialize(keys, values, cap)
-    gk, gc, (gs_hi, gs_lo), gmin, gmax, _ = out
+    gk, gc, (gs_hi, gs_lo), gmin, gmax, _ = group_agg_materialize(
+        keys, values, round_up(ngroups, pad_multiple))
     sl = slice(0, ngroups)
     sums = ((np.asarray(gs_hi[sl]).astype(np.int64) << 32)
             | np.asarray(gs_lo[sl]).astype(np.int64))
@@ -237,16 +129,5 @@ def group_by_count(keys, *, pad_multiple: int = 1 << 16):
     ngroups = int(group_count(keys))
     if ngroups == 0:
         return np.empty((0,), np.int32), np.empty((0,), np.int32)
-    cap = round_up(ngroups, pad_multiple)
-    gk = None
-    if jax.default_backend() != "cpu":
-        from tpujoin.kernels.compact import pick_out_step
-        cstep = pick_out_step(int(keys.shape[0]), ngroups)
-        if cstep is not None:
-            gk_k, gc_k, _, fits = group_materialize(
-                keys, cap, compact_step=cstep)
-            if bool(fits):
-                gk, gc = gk_k, gc_k
-    if gk is None:
-        gk, gc, _ = group_materialize(keys, cap)
+    gk, gc, _ = group_materialize(keys, round_up(ngroups, pad_multiple))
     return np.asarray(gk[:ngroups]), np.asarray(gc[:ngroups])

@@ -1,22 +1,19 @@
-"""Sort-merge probe pipeline: the engine's fast path (v2).
+"""Sort-merge probe pipeline (v2).
 
 Same contract as :mod:`tpujoin.ops.hash_join`'s count/materialize phases —
 exact-size (rowID_R, rowID_S) multiset — but the probe side is sorted once
-and both hot stages run as Pallas kernels:
+(one 2-operand sort), so the count phase's rank lookups read both sides in
+key order:
 
-  count:       sort probe (keys, ids) -> kernels.merge_count (streaming
-               diagonal-blocked window compare; replaces two searchsorted
-               sorts)
-  materialize: compact rows with matches -> cumsum -> the fastest
-               fitting expansion kernel, chosen by plan_materialize:
-               kernels.expand_fill (marker fill + step-phased periodic
-               group images) -> kernels.expand_groups (big periods) ->
-               kernels.expand_runs -> kernels.expand (always fits)
+  count:       sort probe (keys, ids) -> hash_join.ranks against the
+               sorted build keys -> (lo, counts) per sorted probe row
+  materialize: hash_join.probe_materialize straight over the count-phase
+               state (rows with zero matches own no output slot, so no
+               compaction), carrying the sorted probe ids
 
 The relationship between v1 (hash_join) and v2 (merge_join) deliberately
 mirrors the reference's join_v1 -> join_v2 lineage: identical semantics,
-re-engineered hot path (the reference staged probe results through shared
-memory, join_v2.mlir:442-605; we route the expansion through VMEM tiles).
+a re-engineered probe path.
 
 Emitting results in sorted-probe order is free parity: the output is an
 unordered multiset (the oracle compares sorted pairs, reference
@@ -31,10 +28,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from tpujoin.kernels.expand import expand
-from tpujoin.kernels.expand_runs import expand_runs
-from tpujoin.kernels.merge_count import merge_count
-from tpujoin.ops.hash_join import HashJoinTable, build
+from tpujoin.ops.hash_join import HashJoinTable, build, ranks
+from tpujoin.ops.hash_join import probe_materialize as hj_materialize
 from tpujoin.utils.shapes import round_up
 
 
@@ -56,317 +51,67 @@ class SortedProbe:
 
 
 def exact_sum_i32(x: jax.Array) -> jax.Array:
-    """Exact int64 sum of a non-negative i32 array WITHOUT a full-width
-    emulated-x64 pass (measured ~0.15 s at 100M — the x64 emulation costs
-    ~10 vector ops/element): per-4096-block i32 partial sums of the low
-    16 and high 15 bits are overflow-safe for ANY i32 values
-    (4096*65535 < 2^31 and 4096*32767 < 2^31), and only the tiny
-    block-sum vectors take the emulated-i64 pass."""
-    m = x.shape[0]
-    blk = 4096
-    main = (m // blk) * blk
-    xm = jax.lax.slice_in_dim(x, 0, main).reshape(-1, blk)
-    lo_s = jnp.sum(xm & jnp.int32(0xFFFF), axis=1)
-    hi_s = jnp.sum(jax.lax.shift_right_logical(xm, jnp.int32(16)), axis=1)
+    """Exact int64 sum of an i32 array (skewed joins exceed 2^31 pairs)."""
     with jax.enable_x64(True):
-        total = (jnp.sum(lo_s.astype(jnp.int64))
-                 + (jnp.sum(hi_s.astype(jnp.int64)) << 16)
-                 + jnp.sum(jax.lax.slice_in_dim(x, main, m)
-                           .astype(jnp.int64)))
-    return total
+        return jnp.sum(x.astype(jnp.int64))
 
 
 @jax.jit
-def _count_presorted(ht: HashJoinTable, psk: jax.Array, pid: jax.Array):
-    lo, cnt = merge_count(ht.sorted_keys, psk)
+def probe_count(ht: HashJoinTable, probe_keys: jax.Array):
+    """Count phase. Returns (state, total, nonzero_rows) — total is the
+    exact result size (int64: skewed workloads exceed 2^31 pairs, e.g.
+    Zipf(1.0) at 10M x 10M is ~10^11 pairs), nonzero_rows the number of
+    probe rows with >= 1 match (the width of the RLE result)."""
+    m = probe_keys.shape[0]
+    ids = jnp.arange(m, dtype=jnp.int32)
+    # unstable: ids are distinct, and the join result is an unordered
+    # multiset — tie order carries nothing
+    psk, pid = jax.lax.sort((probe_keys, ids), num_keys=1, is_stable=False)
+    lo, cnt = ranks(ht.sorted_keys, psk)
     total = exact_sum_i32(cnt)
     nonzero = jnp.sum((cnt > 0).astype(jnp.int32))
     return SortedProbe(pid, lo, cnt), total, nonzero
 
 
-@jax.jit
-def _probe_count_xla(ht: HashJoinTable, probe_keys: jax.Array):
-    m = probe_keys.shape[0]
-    ids = jnp.arange(m, dtype=jnp.int32)
-    # unstable: ids are distinct, and the join result is an unordered
-    # multiset — tie order carries nothing. Measured 0.59 -> 0.42 s at
-    # 100M for the 2-operand sort (exp/count_sort_variants.py).
-    psk, pid = jax.lax.sort((probe_keys, ids), num_keys=1,
-                            is_stable=False)
-    return _count_presorted(ht, psk, pid)
-
-
-def probe_count(ht: HashJoinTable, probe_keys: jax.Array):
-    """Count phase. Returns (state, total, nonzero_rows) — total is the
-    exact result size (int64: skewed workloads exceed 2^31 pairs, e.g.
-    Zipf(1.0) at 10M x 10M is ~10^11 pairs), nonzero_rows the number of
-    probe rows with >= 1 match (the materialize phase's compaction
-    width). The probe sort runs on the owned Pallas merge sort
-    (kernels.merge_sort) at driver scale on TPU, lax.sort when traced or
-    small (ops.hash_join.use_pallas_sort)."""
-    from tpujoin.ops.hash_join import use_pallas_sort
-
-    if use_pallas_sort(probe_keys):
-        from tpujoin.kernels.merge_sort import sort_pairs
-
-        m = probe_keys.shape[0]
-        psk, pid = sort_pairs(probe_keys,
-                              jnp.arange(m, dtype=jnp.int32))
-        return _count_presorted(ht, psk, pid)
-    return _probe_count_xla(ht, probe_keys)
-
-
-def _compact(state: SortedProbe, k_cap: int, all_matched: bool = False,
-             compact_step: int | None = None):
-    """Compact count-phase state to rows with >= 1 match. Default path:
-    SORT with the zero flag folded into the key: matched rows already
-    carry non-decreasing lo (sorted-probe order), so a sort on
-    where(cnt>0, lo, INT32_MAX) is the same partition as a
-    separate-flag sort with one fewer operand (measured on TPU at 100M,
-    exp/sort_variants.py: 3-ary masked-lo 0.79 s vs 4-ary flag 0.94 s;
-    the 2-ary-sort + O(k_cap)-gather redesigns lose outright at 1.4-1.5 s
-    — XLA element gathers at ~73M idx/s erase the sort savings). One
-    vectorized sort beats per-element scatters either way (3 scatters at
-    100M ~2.6 s). The tail (unmatched rows) is clamped back to lo = 0 so
-    no consumer ever sees the sentinel as a DMA/slab offset. Returns
-    (lo_c, cnt_c, sid_c, offs_c, total, nonzero, cfits) at static width
-    k_cap.
-
-    ``compact_step`` (static) routes compaction through the Pallas
-    stream-compaction kernel (kernels.compact: staged monotone shifts,
-    no sort at all) with that many output rows per grid step — chosen by
-    the driver from the host-known selectivity (kernels.compact.
-    pick_out_step). ``cfits`` is then the kernel's coverage flag; the
-    caller falls back to the sort path when it is False.
+def _compact(state: SortedProbe, k_cap: int, all_matched: bool = False):
+    """The count-phase rows with >= 1 match, in order, at static width
+    k_cap: (lo_c, cnt_c, sid_c), tail zero-padded. Exclusive cumsum of the
+    match mask gives each kept row its slot, and one dropping scatter per
+    column writes it there.
 
     ``all_matched`` (static) asserts nonzero == m — the caller checked
     every probe row has a match (always true on fully-covered key
     domains, e.g. the reference's 10Mx10M config) — making compaction the
-    identity and skipping its sort entirely."""
-    cnt = state.counts
-    m = cnt.shape[0]
-    total = jnp.sum(cnt)
-    nonzero = jnp.sum((cnt > 0).astype(jnp.int32))
-    if compact_step is not None and not all_matched:
-        from tpujoin.kernels import compact as ck
-
-        if jax.default_backend() == "cpu":
-            kw = {"out_step": min(compact_step, 1024), "slab": 4096}
-        else:
-            kw = {"out_step": compact_step}
-        lo_c, cnt_c, sid_c, cfits = ck.compact3(
-            state.lo, cnt, state.probe_ids, k_cap, **kw)
-        offs_c = jnp.cumsum(cnt_c) - cnt_c
-        return lo_c, cnt_c, sid_c, offs_c, total, nonzero, cfits
+    identity."""
+    cols = (state.lo, state.counts, state.probe_ids)
+    m = state.counts.shape[0]
     if all_matched:
-        lo_s, cnt_s, sid_s = state.lo, cnt, state.probe_ids
-    else:
-        mlo = jnp.where(cnt > 0, state.lo, jnp.int32(0x7FFFFFFF))
-        # unstable is safe here too: matched rows with equal masked lo
-        # share the SAME probe key (disjoint build ranges otherwise),
-        # hence the same cnt — permuting sid within a tie leaves the
-        # expanded pair multiset unchanged
-        mlo_s, cnt_s, sid_s = jax.lax.sort(
-            (mlo, cnt, state.probe_ids), num_keys=1, is_stable=False)
-        lo_s = jnp.where(cnt_s > 0, mlo_s, 0)
-
-    def fit(a):
         if k_cap <= m:
-            return jax.lax.slice_in_dim(a, 0, k_cap)
-        return jnp.pad(a, (0, k_cap - m))
-
-    lo_c, cnt_c, sid_c = fit(lo_s), fit(cnt_s), fit(sid_s)
-    offs_c = jnp.cumsum(cnt_c) - cnt_c
-    return lo_c, cnt_c, sid_c, offs_c, total, nonzero, jnp.bool_(True)
-
-
-def _group_heads(lo_c, cnt_c, offs_c, k_cap: int, nonzero):
-    """Group extraction: equal probe keys share one (lo, cnt) build range,
-    and lo strictly increases across distinct matched keys, so group heads
-    are exactly the rows where lo changes. Compact heads by one sort on
-    a sentinel key (the same compact-by-sort idiom as _compact).
-    Returns (goff_h, glo_h, gnb_h, ngroups)."""
-    row = jnp.arange(k_cap, dtype=jnp.int32)
-    prev_lo = jnp.concatenate([lo_c[:1] - 1, lo_c[:-1]])
-    is_head = jnp.logical_and(row < nonzero, lo_c != prev_lo)
-    big = jnp.int32(0x7FFFFFFF)
-    goff_in = jnp.where(is_head, offs_c, big)
-    # unstable: head rows have distinct goff; non-heads all carry the
-    # sentinel and are never read back
-    goff_h, glo_h, gnb_h = jax.lax.sort((goff_in, lo_c, cnt_c),
-                                        num_keys=1, is_stable=False)
-    ngroups = jnp.sum(is_head.astype(jnp.int32))
-    return goff_h, glo_h, gnb_h, ngroups
+            return tuple(jax.lax.slice_in_dim(c, 0, k_cap) for c in cols)
+        return tuple(jnp.pad(c, (0, k_cap - m)) for c in cols)
+    keep = state.counts > 0
+    slot = jnp.cumsum(keep.astype(jnp.int32)) - keep.astype(jnp.int32)
+    slot = jnp.where(keep, slot, k_cap)
+    return tuple(jnp.zeros((k_cap,), jnp.int32).at[slot].set(c, mode="drop")
+                 for c in cols)
 
 
-@functools.partial(jax.jit,
-                   static_argnames=("k_cap", "capacity", "compact_step"))
 def probe_materialize(
     ht: HashJoinTable,
     state: SortedProbe,
-    k_cap: int,
     capacity: int,
     probe_base: int | jax.Array = 0,
-    compact_step: int | None = None,
 ):
-    """Materialize phase at static capacities (k_cap >= nonzero_rows,
-    capacity >= total). Returns (r_ids, s_ids, total, fits), pad slots = -1.
-
-    ``fits`` is False iff capacity < total, k_cap < nonzero, or (with
-    ``compact_step`` set) the Pallas compaction kernel's coverage check
-    failed — the output would then be a silent truncation of the pair
-    multiset. Every driver checks it (the same contract as the expansion
-    kernels' ``fits`` flag) and retries with compact_step=None on a
-    compaction miss."""
-    lo_c, cnt_c, sid_c, offs_c, total, nonzero, cfits = _compact(
-        state, k_cap, compact_step=compact_step)
-
-    bpos, sid_out = expand(offs_c, lo_c, sid_c, capacity)
-    t = jnp.arange(capacity, dtype=jnp.int32)
-    valid = t < total
-    bpos = jnp.clip(bpos, 0, ht.num_rows - 1)
-    r_ids = jnp.where(valid, jnp.take(ht.sorted_ids, bpos), -1)
-    s_ids = jnp.where(valid, sid_out + probe_base, -1)
-    fits = jnp.logical_and(total <= capacity, nonzero <= k_cap) & cfits
-    return r_ids.astype(jnp.int32), s_ids.astype(jnp.int32), total, fits
+    """Materialize phase over the v2 count state: hash_join's
+    materialize with the sorted probe ids carried through. Returns
+    (r_ids, s_ids, total, fits)."""
+    return hj_materialize(ht, state.lo, state.counts, capacity, probe_base,
+                          state.probe_ids)
 
 
-# avg matches/row above which the run-expansion kernel wins over
-# expand+take (its per-pair cost falls with run length; the gather
-# fallback is flat at ~123M pairs/s)
-RUNS_MIN_DUP = 8
-# avg matches/row above which the group-based kernels' static envelopes
-# plausibly fit — below this, don't waste a kernel launch discovering
-# fits=False. Derived from the tightest envelope: expand_groups needs
-# < W - 1 run starts per 1024-slot tile, i.e. avg run length above
-# TILE / (W - 2) ~= 35 (expand_fill's GW bound is looser than this for
-# any probe-side duplication >= 1).
-GROUPS_MIN_DUP = 35
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("k_cap", "capacity", "src_slab"))
-def probe_materialize_runs(
-    ht: HashJoinTable,
-    state: SortedProbe,
-    k_cap: int,
-    capacity: int,
-    probe_base: int | jax.Array = 0,
-    src_slab: int | None = None,
-):
-    """Materialize phase on the run-expansion kernel (kernels.expand_runs):
-    emits (r_ids, s_ids) directly from the compacted runs — no intermediate
-    build positions, no XLA gather. Returns (r_ids, s_ids, total, fits);
-    ``fits`` False means the workload's runs don't fit the kernel's slabs
-    (low duplication / wild source spread) and the caller must use
-    :func:`probe_materialize` instead. Outputs are only valid when fits."""
-    lo_c, cnt_c, sid_c, offs_c, total, nonzero, _ = _compact(state, k_cap)
-
-    kw = {} if src_slab is None else {"src_slab": src_slab}
-    r_ids, s_ids, fits = expand_runs(
-        offs_c, lo_c, cnt_c, sid_c, ht.sorted_ids, nonzero, total, capacity,
-        **kw)
-    s_ids = jnp.where(s_ids >= 0, s_ids + probe_base, -1).astype(jnp.int32)
-    # same capacity contract as probe_materialize: an undersized result
-    # buffer is a truncated multiset, not a valid output
-    fits = fits & (total <= capacity) & (nonzero <= k_cap)
-    return r_ids, s_ids, total, fits
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("k_cap", "capacity", "src_slab",
-                                    "profile"))
-def probe_materialize_groups(
-    ht: HashJoinTable,
-    state: SortedProbe,
-    k_cap: int,
-    capacity: int,
-    probe_base: int | jax.Array = 0,
-    src_slab: int | None = None,
-    profile: tuple[int, int, int] | None = None,
-):
-    """Materialize phase on the group-periodic kernel
-    (kernels.expand_groups): one periodic fill per distinct matched key
-    instead of one rotation per run — the fast path when probe keys repeat
-    (per-output work falls by the probe-side duplication factor). Returns
-    (r_ids, s_ids, total, fits); ``fits`` False means the workload's
-    runs/groups/source windows don't fit the kernel's slabs and the caller
-    must fall back. Outputs are only valid when fits. ``profile`` is an
-    optional (batch, w, gw) static unroll envelope override; on the CPU
-    backend an unset profile defaults to a small envelope — the default
-    TPU profile's interpret-mode graph crashes XLA:CPU outright (observed
-    segfault in backend_compile), and a tighter envelope only costs extra
-    fits=False fallbacks, never wrong results."""
-    from tpujoin.kernels.expand_groups import expand_groups
-
-    if profile is None and jax.default_backend() == "cpu":
-        profile = (4, 16, 8)
-
-    lo_c, cnt_c, sid_c, offs_c, total, nonzero, _ = _compact(state, k_cap)
-    goff_h, glo_h, gnb_h, ngroups = _group_heads(
-        lo_c, cnt_c, offs_c, k_cap, nonzero)
-
-    kw = {} if src_slab is None else {"src_slab": src_slab}
-    if profile is not None:
-        kw.update(zip(("batch", "w", "gw"), profile))
-    r_ids, s_ids, fits = expand_groups(
-        offs_c, sid_c, goff_h, glo_h, gnb_h, ht.sorted_ids,
-        nonzero, ngroups, total, capacity, **kw)
-    s_ids = jnp.where(s_ids >= 0, s_ids + probe_base, -1).astype(jnp.int32)
-    fits = fits & (total <= capacity) & (nonzero <= k_cap)
-    return r_ids, s_ids, total, fits
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("k_cap", "capacity", "src_slab",
-                                    "profile", "all_matched"))
-def probe_materialize_fill(
-    ht: HashJoinTable,
-    state: SortedProbe,
-    k_cap: int,
-    capacity: int,
-    probe_base: int | jax.Array = 0,
-    src_slab: int | None = None,
-    profile: tuple[int, int] | None = None,
-    all_matched: bool = False,
-):
-    """Materialize phase on the fill+periodic kernel
-    (kernels.expand_fill): the probe column comes from one marker scatter
-    plus an in-kernel doubling forward-fill (no per-run work at all), the
-    build column from step-phased periodic group images. The fastest path
-    for high-duplication workloads — measured 3.4x kernels.expand_groups
-    on the reference's 1B-pair config. Returns (r_ids, s_ids, total,
-    fits); ``fits`` False means a grid step covers too many groups (low
-    duplication) or a group period exceeds the image (huge build-side
-    duplication) and the caller must fall back. Outputs are only valid
-    when fits. ``profile`` is an optional (step, gw) static envelope
-    override; on the CPU backend an unset profile defaults to a small
-    envelope to keep the interpret-mode graph compilable."""
-    from tpujoin.kernels.expand_fill import expand_fill
-
-    if profile is None and jax.default_backend() == "cpu":
-        profile = (4096, 6)
-
-    lo_c, cnt_c, sid_c, offs_c, total, nonzero, _ = _compact(
-        state, k_cap, all_matched=all_matched)
-    goff_h, glo_h, gnb_h, ngroups = _group_heads(
-        lo_c, cnt_c, offs_c, k_cap, nonzero)
-
-    kw = {} if src_slab is None else {"src_slab": src_slab}
-    if profile is not None:
-        kw.update(zip(("step", "gw"), profile))
-    r_ids, s_ids, fits = expand_fill(
-        offs_c, sid_c, goff_h, glo_h, gnb_h, ht.sorted_ids,
-        nonzero, ngroups, total, capacity, **kw)
-    s_ids = jnp.where(s_ids >= 0, s_ids + probe_base, -1).astype(jnp.int32)
-    fits = fits & (total <= capacity) & (nonzero <= k_cap)
-    return r_ids, s_ids, total, fits
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("k_cap", "all_matched", "compact_step"))
+@functools.partial(jax.jit, static_argnames=("k_cap", "all_matched"))
 def probe_rle(ht: HashJoinTable, state: SortedProbe, k_cap: int,
-              all_matched: bool = False, compact_step: int | None = None):
+              all_matched: bool = False):
     """Factorized (RLE) result at static row capacity: per matched probe
     row, (probe_id, lo, cnt) over ``ht.sorted_ids``. This IS the join result
     in run-length form — total pairs = sum(cnt) — produced without paying
@@ -377,14 +122,9 @@ def probe_rle(ht: HashJoinTable, state: SortedProbe, k_cap: int,
     :func:`probe_materialize` expands on demand.
 
     ``all_matched`` (static, asserted by the caller from nonzero == m)
-    makes compaction the identity; ``compact_step`` (static) routes it
-    through the Pallas stream-compaction kernel and appends its coverage
-    flag to the returned tuple (sort fallback on False, same contract as
-    :func:`probe_materialize`)."""
-    lo_c, cnt_c, sid_c, _, _, _, cfits = _compact(
-        state, k_cap, all_matched=all_matched, compact_step=compact_step)
-    out = (sid_c, lo_c, cnt_c)
-    return out if compact_step is None else out + (cfits,)
+    makes compaction the identity."""
+    lo_c, cnt_c, sid_c = _compact(state, k_cap, all_matched=all_matched)
+    return sid_c, lo_c, cnt_c
 
 
 def merge_join_rle(build_keys, probe_keys, *, row_pad_multiple: int = 1 << 16):
@@ -401,20 +141,8 @@ def merge_join_rle(build_keys, probe_keys, *, row_pad_multiple: int = 1 << 16):
         e = np.empty(0, np.int32)
         return e, e, e, np.asarray(ht.sorted_ids)
     k_cap = round_up(nonzero, row_pad_multiple)
-    m = int(probe_keys.shape[0])
-    kw = {}
-    if nonzero == m:
-        kw = {"all_matched": True}
-    elif jax.default_backend() != "cpu":
-        from tpujoin.kernels.compact import pick_out_step, plan_fits
-        cstep = pick_out_step(m, nonzero)
-        if cstep is not None and bool(
-                plan_fits(state.counts, k_cap, out_step=cstep)):
-            kw = {"compact_step": cstep}
-    out = probe_rle(ht, state, k_cap, **kw)
-    if "compact_step" in kw and not bool(out[3]):
-        out = probe_rle(ht, state, k_cap)   # device-flag fallback
-    sid, lo, cnt = out[:3]
+    sid, lo, cnt = probe_rle(ht, state, k_cap,
+                             all_matched=nonzero == probe_keys.shape[0])
     return (np.asarray(sid[:nonzero]), np.asarray(lo[:nonzero]),
             np.asarray(cnt[:nonzero]), np.asarray(ht.sorted_ids))
 
@@ -478,8 +206,7 @@ def left_outer_join(build_keys, probe_keys, **kwargs):
     else:
         pad = kwargs.get("result_pad_multiple", 1 << 20)
         cap = round_up(total, pad)
-        k_cap = round_up(nonzero, max(pad // 8, 1024))
-        r_ids, s_ids, _, fits = probe_materialize(ht, state, k_cap, cap)
+        r_ids, s_ids, _, fits = probe_materialize(ht, state, cap)
         assert bool(fits), "materialize capacity undersized"
         r_inner = np.asarray(r_ids[:total])
         s_inner = np.asarray(s_ids[:total])
@@ -487,94 +214,6 @@ def left_outer_join(build_keys, probe_keys, **kwargs):
     r_out = np.concatenate([r_inner, np.full(len(unmatched), -1, np.int32)])
     s_out = np.concatenate([s_inner, unmatched])
     return r_out, s_out
-
-
-def plan_materialize(
-    ht: HashJoinTable,
-    state: SortedProbe,
-    k_cap: int,
-    capacity: int,
-    *,
-    total: int,
-    nonzero: int,
-    probe_base: int = 0,
-):
-    """Resolve the fastest fitting materialize path for this workload.
-    Returns (name, results, replay): ``results`` is the chosen path's
-    (r_ids, s_ids, total_dev) — already computed, NOT re-run (ADVICE r3
-    #1: the old (name, fn) contract made every driver pay the whole
-    materialize twice) — and ``replay()`` re-invokes the identical jitted
-    call for timing harnesses. Tries each kernel fastest-first, accepting
-    the first whose device ``fits`` flag holds: fill+periodic ->
-    group-periodic (covers big periods) -> run-rotation -> expand+take
-    (always fits). The compact-kernel-vs-sort compaction choice inside
-    the expand path is made with the cheap standalone coverage predicate
-    (kernels.compact.plan_fits, O(m/1024) block math) instead of a
-    discarded full run; the kernel's own fits flag remains the
-    authoritative guard."""
-    all_matched = nonzero == state.counts.shape[0]
-    if total >= nonzero * GROUPS_MIN_DUP:
-        from tpujoin.kernels.expand_fill import SRC_SLABS as FILL_SLABS
-        from tpujoin.kernels.expand_groups import SRC_SLABS as GROUP_SLABS
-        for name, fn, kw, slabs in (
-                ("fill", probe_materialize_fill,
-                 {"all_matched": all_matched}, FILL_SLABS),
-                ("groups", probe_materialize_groups, {}, GROUP_SLABS)):
-            for slab in slabs:
-                r_ids, s_ids, tot, fits = fn(
-                    ht, state, k_cap, capacity, probe_base=probe_base,
-                    src_slab=slab, **kw)
-                if bool(fits):
-                    return name, (r_ids, s_ids, tot), (
-                        lambda f=fn, s=slab, k=kw: f(
-                            ht, state, k_cap, capacity,
-                            probe_base=probe_base, src_slab=s, **k)[:3])
-                # release the failed trial's full-capacity result buffers
-                # BEFORE launching the next trial: at 1B-pair capacities
-                # each (r_ids, s_ids) set is ~8 GB and two live sets OOM
-                # HBM (the bool(fits) sync above already forced the call)
-                del r_ids, s_ids, tot, fits
-    if total >= nonzero * RUNS_MIN_DUP:
-        from tpujoin.kernels.expand_runs import SRC_SLABS
-        for slab in SRC_SLABS:
-            r_ids, s_ids, tot, fits = probe_materialize_runs(
-                ht, state, k_cap, capacity, probe_base=probe_base,
-                src_slab=slab)
-            if bool(fits):
-                return "runs", (r_ids, s_ids, tot), (
-                    lambda s=slab: probe_materialize_runs(
-                        ht, state, k_cap, capacity, probe_base=probe_base,
-                        src_slab=s)[:3])
-            del r_ids, s_ids, tot, fits
-    # expand path: compact with the Pallas kernel instead of the 3-ary
-    # sort when the host-known selectivity fits its coverage envelope
-    # (the device fits flag guards local dips; sort fallback otherwise)
-    cstep = None
-    m = state.counts.shape[0]
-    # (auto-selection is TPU-only: on the CPU test backend the interpret-
-    # mode probe would only add executables toward the XLA:CPU compile
-    # budget — dedicated tests drive compact_step explicitly there)
-    if 0 < nonzero < m and jax.default_backend() != "cpu":
-        from tpujoin.kernels.compact import pick_out_step, plan_fits
-        cstep = pick_out_step(m, nonzero)
-        if cstep is not None and not bool(
-                plan_fits(state.counts, k_cap, out_step=cstep)):
-            cstep = None
-    r_ids, s_ids, tot, fits = probe_materialize(
-        ht, state, k_cap, capacity, probe_base=probe_base,
-        compact_step=cstep)
-    if cstep is not None and not bool(fits):
-        # plan said cover, device disagreed (cannot happen while both run
-        # the same block math, but the kernel flag stays authoritative)
-        cstep = None
-        del r_ids, s_ids, tot, fits   # free before the retry allocates
-        r_ids, s_ids, tot, fits = probe_materialize(
-            ht, state, k_cap, capacity, probe_base=probe_base,
-            compact_step=None)
-    return "expand", (r_ids, s_ids, tot), (
-        lambda c=cstep: probe_materialize(
-            ht, state, k_cap, capacity, probe_base=probe_base,
-            compact_step=c)[:3])
 
 
 def merge_join(
@@ -602,15 +241,14 @@ def merge_join(
             # variant) keeps one compiled executable per chunk shape
             pk = jnp.pad(pk, (0, chunk - (end - start)),
                          constant_values=np.int32(0x7FFFFFFE))
-        state, total, nonzero = probe_count(ht, pk)
-        total, nonzero = int(total), int(nonzero)
+        state, total, _ = probe_count(ht, pk)
+        total = int(total)
         if total == 0:
             continue
         cap = round_up(total, result_pad_multiple)
-        k_cap = round_up(nonzero, max(result_pad_multiple // 8, 1024))
-        _, (r_ids, s_ids, _), _ = plan_materialize(
-            ht, state, k_cap, cap, total=total, nonzero=nonzero,
-            probe_base=start)
+        r_ids, s_ids, _, fits = probe_materialize(ht, state, cap,
+                                                  probe_base=start)
+        assert bool(fits), "materialize capacity undersized"
         out_r.append(np.asarray(r_ids[:total]))
         out_s.append(np.asarray(s_ids[:total]))
 

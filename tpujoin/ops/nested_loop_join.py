@@ -8,10 +8,10 @@ correctness oracle for the hash join (the native C++ oracle in
 native/oracle.cpp is the host-side twin, mirroring reference
 shared_stuff/shared.cpp:129-171).
 
-TPU design: the reference's one-thread-per-outer-row scan over the inner
+Design: the reference's one-thread-per-outer-row scan over the inner
 table twice (count pass nested-loop.mlir:78-88, write pass :160-188) becomes
 a blocked dense comparison — the [n, m] equality matrix evaluated tile by
-tile on the VPU, compacted with the same cumsum+scatter machinery as the
+tile, compacted with the same cumsum+scatter machinery as the
 filter op. Intended for small/medium relations (oracle duty, n*m <= ~1e9);
 the hash join is the scalable path, and @main's smaller-table-as-inner
 selection (reference nested-loop.mlir:243-263) is irrelevant here because

@@ -5,12 +5,10 @@ config 3 "radix-partitioned hash join" and config 4's shuffle) — the
 reference has none of this; "Partitioned Hash-Join" is on its future-work
 list (reference projectDescription.md:23).
 
-TPU design note: the classic CPU/GPU radix pass is histogram -> prefix sum ->
-scatter-at-computed-offsets. TPU has no efficient per-element scatter (every
-scatter with data-dependent indices serializes), so the stable reorder step
-is done with the hardware-optimal primitive available: XLA's vectorized sort
-network keyed on the (small-domain) partition digit. The histogram/offsets
-come from the same sorted form via searchsorted — no scatter anywhere.
+Design note: the classic radix pass is histogram -> prefix sum ->
+scatter-at-computed-offsets. Here the stable reorder step is one XLA sort
+keyed on the (small-domain) partition digit, and the histogram/offsets come
+from the same sorted form via searchsorted — no scatter anywhere.
 """
 from __future__ import annotations
 
@@ -64,11 +62,10 @@ def radix_partition(keys: jax.Array, row_ids: jax.Array, num_partitions: int):
 def radix_sort(keys: jax.Array, bits_per_pass: int = 8):
     """LSD radix sort over i32 keys; returns (sorted_keys, permutation).
 
-    Each digit pass is a stable reorder keyed on the digit. On TPU the
-    hardware-optimal stable reorder IS the XLA sort network (scatter
-    serializes), so for a full-width key a single fused sort on the biased
-    key dominates multi-pass digit sorting — this function exists for
-    operator-API parity and for sorting by a *narrow* digit cheaply;
+    Each digit pass is a stable reorder keyed on the digit (one XLA sort).
+    For a full-width key a single fused sort on the biased key beats
+    multi-pass digit sorting — this function exists for operator-API
+    parity and for sorting by a *narrow* digit cheaply;
     :func:`tpujoin.ops.sort.sort_with_ids` is the production path.
     """
     n = keys.shape[0]

@@ -1,13 +1,13 @@
 """Key sort — the engine's foundational primitive.
 
 The reference has no sort (its hash table is a linked list built with
-atomics); on TPU the sort IS the hash table: hash_join.build sorts the build
+atomics); here the sort IS the hash table: hash_join.build sorts the build
 side so bucket lookups become binary search over contiguous runs. Radix sort
 is also one of the extension operators BASELINE.json names ("radix sort,
 hash aggregate").
 
-Single-chip sort defers to ``jax.lax.sort`` — XLA's native TPU sort network,
-fully vectorized and the fastest available on-device comparison sort. The
+Single-device sort defers to ``jax.lax.sort`` — XLA's own sort, which
+hands large one-key sorts to the GPU's library radix sort. The
 radix machinery lives in :mod:`tpujoin.ops.radix` (digit histogram +
 stable reorder), which is what distribution uses for partitioning.
 """

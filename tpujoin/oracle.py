@@ -130,6 +130,25 @@ def group_by_count(keys):
     return uk.astype(np.int32), uc.astype(np.int32)
 
 
+def check_group_agg(keys, values, gk, gc, sums, gmin, gmax) -> bool:
+    """Exact parity of per-group (key, count, sum, min, max) host arrays,
+    keys ascending and sums int64, against a NumPy recompute."""
+    v = np.asarray(values).astype(np.int64)
+    keys = np.asarray(keys)
+    order = np.argsort(keys, kind="stable")
+    ks, vs = keys[order], v[order]
+    bnd = np.flatnonzero(np.r_[True, ks[1:] != ks[:-1]])
+    ends = np.r_[bnd[1:], len(ks)]
+    cs = np.r_[0, np.cumsum(vs)]
+    return bool(np.array_equal(gk, ks[bnd])
+                and np.array_equal(gc, ends - bnd)
+                and np.array_equal(sums, cs[ends] - cs[bnd])
+                and np.array_equal(np.asarray(gmin).astype(np.int64),
+                                   np.minimum.reduceat(vs, bnd))
+                and np.array_equal(np.asarray(gmax).astype(np.int64),
+                                   np.maximum.reduceat(vs, bnd)))
+
+
 def _numpy_join_pairs(r: np.ndarray, s: np.ndarray) -> np.ndarray:
     """Independent NumPy oracle: sorted-build binary-search join."""
     order = np.argsort(r, kind="stable").astype(np.int32)

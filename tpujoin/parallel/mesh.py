@@ -3,9 +3,10 @@
 The reference is strictly single-GPU (reference projectDescription.md:23-24
 leaves partitioning and out-of-memory relations as future work); scale-out
 here is a 1-D ``jax.sharding.Mesh`` whose axis is the engine's only
-meaningful parallelism axis: *rows* (tables hash-partitioned across chips).
-Collectives ride ICI within a slice / DCN across slices — chosen by XLA from
-the mesh topology, never hand-coded.
+meaningful parallelism axis: *rows* (tables partitioned across devices).
+The collectives are XLA's (NCCL between the NVLink-joined cards of one
+host), never hand-coded; every device reaches every other at one rate, so
+the mesh follows the algorithm alone.
 """
 from __future__ import annotations
 

@@ -1,23 +1,20 @@
-"""Multi-host / multi-process mesh bootstrap.
+"""Multi-process mesh bootstrap.
 
-BASELINE.json configs 4-5 target 2+ hosts / pod-slice scale. A JAX TPU pod
-runs one Python process per host; after ``initialize()`` every process sees
-the global device set and the SAME engine code (shuffle join, skew split,
-pipelined exchange) runs unchanged — XLA routes ``all_to_all``/``all_gather``
-/``psum`` over ICI within a slice and DCN across slices based on the mesh's
-device topology. Nothing else in the engine is host-count-aware.
+One process can drive every card of a host, which is how the engine runs
+on four cards. Several processes — one per host, or several on one host —
+join through ``initialize()``: afterwards every process sees the global
+device set and the SAME engine code (shuffle join, skew split, pipelined
+exchange) runs unchanged; nothing else in the engine is process-count-
+aware. Pass the coordinator address (``host:port``), the process count
+and this process's id explicitly: no cluster environment supplies them.
+Single-process setups skip initialize entirely.
 
-On Cloud TPU the coordinator/process-id/process-count arguments are
-discovered from the environment automatically; elsewhere pass them
-explicitly. Single-host (or emulated CPU) setups skip initialize entirely.
-
-This machine has one chip, so a multi-HOST pod cannot run here; the
-multi-PROCESS runtime is exercised for real by tests/test_multihost.py
-(two local processes, CPU backend, localhost coordinator) driving
+The multi-process runtime is exercised by tests/test_multihost.py (two
+local processes, CPU backend, localhost coordinator) driving
 ``initialize`` + ``make_global_mesh`` + one shuffle-join step with an
-exact-count check, and the collective programs are further validated on
-an emulated 8-device CPU mesh (tests/test_dist.py, tests/test_skew.py)
-and by the driver's ``dryrun_multichip``.
+exact-count check; the collective programs are further validated on an
+emulated 8-device CPU mesh (tests/test_dist.py, tests/test_skew.py) and
+by ``__graft_entry__.dryrun_multichip``.
 """
 from __future__ import annotations
 
@@ -31,9 +28,8 @@ from tpujoin.parallel.mesh import ROW_AXIS
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
-    """Bring up the JAX distributed runtime (idempotent-ish; call once per
-    process before any device use). Arguments default to environment
-    discovery on Cloud TPU."""
+    """Bring up the JAX distributed runtime (call once per process before
+    any device use). Unset arguments are left to JAX's own discovery."""
     kwargs = {}
     if coordinator_address is not None:
         kwargs["coordinator_address"] = coordinator_address
@@ -47,7 +43,7 @@ def initialize(coordinator_address: str | None = None,
 def make_global_mesh() -> Mesh:
     """1-D row mesh over ALL devices across every process (vs
     mesh.make_mesh, which uses the process-local view). The row axis spans
-    hosts; shard_map + collectives handle ICI/DCN placement."""
+    processes; shard_map + XLA collectives handle the transport."""
     return Mesh(np.array(jax.devices()), (ROW_AXIS,))
 
 

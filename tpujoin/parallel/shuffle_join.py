@@ -4,11 +4,8 @@ The scale-out path BASELINE.json requires (configs 3-5) and the reference
 explicitly lacks (single GPU; "Partitioned Hash-Join" / "Relations that
 don't fit on GPU" are future work, reference projectDescription.md:23-24).
 
-Design (TPU-native, per the scaling-book recipe — mesh + sharding
-annotations + XLA collectives). Round 4 reworked the exchange from hash
-partitioning to **splitter-based range partitioning over one local key
-sort**, bringing the per-device cost to ~60% of the single-chip v2 engine
-(VERDICT r3 weak #1: the hash form ran at 23%):
+Design (mesh + sharding annotations + XLA collectives): **splitter-based
+range partitioning over one local key sort**.
 
 1. Tables are row-sharded across a 1-D mesh. Each device sorts its local
    (key, id) rows ONCE — the same 2-operand sort the local join needs
@@ -22,16 +19,13 @@ sort**, bringing the per-device cost to ~60% of the single-chip v2 engine
    O(1) program graph in mesh size — no per-peer Python unrolling, no
    send-packing sort at all; the hash design paid a 3-operand sort per
    table here). Unused slots carry the pad key / id = -1.
-3. One ``jax.lax.all_to_all`` per column exchanges the buffers over
-   ICI/DCN.
+3. One ``jax.lax.all_to_all`` per column exchanges the buffers (XLA
+   hands it to NCCL on GPUs).
 4. Each device re-sorts its received buffer per side (2-operand sorts —
    the P received segments are each sorted but interleave; the sort also
    floats the pad sentinels to the tail) and joins with the SAME v2
-   Pallas pipeline as the single-chip headline: kernels.merge_count ->
-   kernels.compact stream-compaction (sort fallback under the same
-   ``fits`` contract as ops.merge_join) -> kernels.expand. The kernels
-   self-select interpret mode on CPU, so the emulated-mesh tests
-   exercise the identical program.
+   pipeline as the single-device engine: ops.hash_join.ranks over the
+   sorted sides, then ops.hash_join.probe_materialize.
 5. ``psum``/``pmax`` reduce exact global result counts and overflow
    telemetry (the distributed analogue of the reference's result-size
    memcpy, join_v1.mlir:140-144).
@@ -42,26 +36,23 @@ benchmark key domain [1, 1e9], reference shared.cpp:13-14, and the same
 two values ops.merge_join already reserves on one chip).
 
 Overflow of a send segment or the local result capacity is *detected*
-(pmax over counts / the compaction coverage flag, psum'd out) and
-surfaced to the driver, which retries with more capacity (or the sort
-compaction) — never silently dropped. Heavy-hitter splitting for Zipf
+(pmax over counts) and surfaced to the driver, which retries with more
+capacity — never silently dropped. Heavy-hitter splitting for Zipf
 skew lives in :mod:`tpujoin.parallel.skew`; see :func:`recommended_slack`.
 """
 from __future__ import annotations
-
-import functools
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from tpujoin.ops.hash_join import HashJoinTable, probe_materialize, ranks
 from tpujoin.parallel.mesh import ROW_AXIS, make_mesh
 from tpujoin.utils.shapes import cdiv, round_up
 
 _BUILD_PAD_KEY = np.int32(0x7FFFFFFF)   # sorts last, never matches a probe
 _PROBE_PAD_KEY = np.int32(0x7FFFFFFE)   # sorts last, never matches a build
-_SS = "sort"             # searchsorted method for O(n)-query lookups
 _SU = "scan_unrolled"    # searchsorted method for O(P)-query lookups
 SAMPLE_K = 1024          # quantile samples per table per device
 
@@ -111,9 +102,8 @@ def _pack_sorted(skeys, sids, starts, counts, num_peers: int,
                  capacity: int, pad_key):
     """Ragged->fixed [P, C] send buffer from contiguous sorted segments:
     one dynamic-slice copy per peer inside a fori_loop — bandwidth-bound
-    DMA copies and a program graph that is O(1) in mesh size (VERDICT r3
-    weak #4: the per-peer Python unrolling grew the program linearly with
-    P). Returns (buf_keys, buf_ids, max_count); max_count > capacity
+    copies and a program graph that is O(1) in mesh size (per-peer Python
+    unrolling would grow the program linearly with P). Returns (buf_keys, buf_ids, max_count); max_count > capacity
     means send overflow."""
     skeys_p = jnp.concatenate(
         [skeys, jnp.full((capacity,), pad_key, jnp.int32)])
@@ -162,91 +152,33 @@ def _sort_build(bk, bid):
 
 
 def _count_sorted(sk, pk, pid_):
-    """Count phase of the local join on the v2 Pallas pipeline: sort the
-    received probe rows once, then kernels.merge_count against the sorted
-    build keys. Returns (psk, ppid, lo, cnt) in sorted-probe order."""
-    from tpujoin.kernels.merge_count import merge_count
-
+    """Count phase of the local join: sort the received probe rows once,
+    then rank them against the sorted build keys. Returns
+    (ppid, lo, cnt) in sorted-probe order."""
     pk_eff = jnp.where(pid_ < 0, _PROBE_PAD_KEY, pk)
     psk, ppid = jax.lax.sort((pk_eff, pid_), num_keys=1, is_stable=False)
-    lo, cnt = merge_count(sk, psk)
-    return psk, ppid, lo, cnt
+    lo, cnt = ranks(sk, psk)
+    return ppid, lo, cnt
 
 
-def _materialize_counted(sk_sorted, sid_sorted, ppid, lo, cnt,
-                         capacity: int, compact_step: int | None):
-    """Local materialize at static result capacity on the SAME machinery
-    as the single-chip headline (VERDICT r3 weak #1: the old form
-    hardcoded the 3-ary compaction sort + an O(capacity) take gather):
-    Pallas stream compaction when ``compact_step`` is set (coverage flag
-    returned — driver falls back on False), masked-lo stable sort
-    otherwise; then kernels.expand and ONE O(result) id gather masked to
-    the exact total. Returns (r_ids, s_ids, total, cfits)."""
-    from tpujoin.kernels.expand import expand
-
-    total = jnp.sum(cnt)
-    # matched-ROW capacity: every matched row contributes >= 1 pair and
-    # there are at most len(cnt) rows, so min(capacity, len(cnt)) bounds
-    # nonzero — sizing the compaction at the PAIR capacity would launch
-    # capacity/out_step grid steps where ceil(rows/out_step) suffice
-    # (the single-chip pipeline keeps the same distinction via k_cap)
-    k_cap = min(capacity, cnt.shape[0])
-    if compact_step is not None:
-        from tpujoin.kernels import compact as ck
-
-        if jax.default_backend() == "cpu":
-            kw = {"out_step": min(compact_step, 1024), "slab": 4096}
-        else:
-            kw = {"out_step": compact_step}
-        lo_c, cnt_c, sid_c, cfits = ck.compact3(lo, cnt, ppid, k_cap,
-                                                **kw)
-    else:
-        # compact3 idiom (see ops.merge_join._compact): flag folded into
-        # the key, tail lo clamped out of the sentinel
-        mlo = jnp.where(cnt > 0, lo, jnp.int32(0x7FFFFFFF))
-        # unstable-safe: equal masked lo => same key => same cnt
-        mlo_c, cnt_c, sid_c = jax.lax.sort((mlo, cnt, ppid), num_keys=1,
-                                           is_stable=False)
-        lo_c = jnp.where(cnt_c > 0, mlo_c, 0)
-
-        def fit(a):
-            m = a.shape[0]
-            if k_cap <= m:
-                return jax.lax.slice_in_dim(a, 0, k_cap)
-            return jnp.pad(a, (0, k_cap - m))
-
-        lo_c, cnt_c, sid_c = fit(lo_c), fit(cnt_c), fit(sid_c)
-        cfits = jnp.bool_(True)
-    offs_c = jnp.cumsum(cnt_c) - cnt_c
-    bpos, sid_out = expand(offs_c, lo_c, sid_c, capacity)
-    t = jnp.arange(capacity, dtype=jnp.int32)
-    valid = t < total
-    bpos = jnp.clip(bpos, 0, sk_sorted.shape[0] - 1)
-    r_ids = jnp.where(valid, jnp.take(sid_sorted, bpos), -1)
-    s_ids = jnp.where(valid, sid_out, -1)
-    return (r_ids.astype(jnp.int32), s_ids.astype(jnp.int32),
-            total.astype(jnp.int32), cfits)
+def _probe_sorted(sk, sid, pk, pid_, capacity: int):
+    """Probe pre-sorted build rows at static result capacity on the v2
+    pipeline (the same steps as ops.merge_join.probe_count +
+    probe_materialize, with the received buffers' global ids carried
+    through). Returns (r_ids, s_ids, total)."""
+    ppid, lo, cnt = _count_sorted(sk, pk, pid_)
+    r_ids, s_ids, total, _ = probe_materialize(
+        HashJoinTable(sk, sid), lo, cnt, capacity, probe_ids=ppid)
+    return r_ids, s_ids, total
 
 
-def _probe_sorted(sk, sid, pk, pid_, capacity: int,
-                  compact_step: int | None = None):
-    """Probe pre-sorted build rows at static result capacity: v2 pipeline
-    (sort probe -> Pallas merge_count -> compaction -> Pallas expand).
-    Mirrors ops.merge_join.probe_materialize with the received buffers'
-    global ids carried through. Returns (r_ids, s_ids, total, cfits)."""
-    _, ppid, lo, cnt = _count_sorted(sk, pk, pid_)
-    return _materialize_counted(sk, sid, ppid, lo, cnt, capacity,
-                                compact_step)
-
-
-def _local_join(bk, bid, pk, pid_, capacity: int,
-                compact_step: int | None = None):
+def _local_join(bk, bid, pk, pid_, capacity: int):
     """Sorted-build equi-join of the received rows, at static result
     capacity; carries explicit global row ids through the exchange.
     (Entry point for :mod:`tpujoin.parallel.skew`, whose replicate path
-    concatenates unsorted buffers.) Returns (r_ids, s_ids, total, cfits)."""
+    concatenates unsorted buffers.) Returns (r_ids, s_ids, total)."""
     sk, sid = _sort_build(bk, bid)
-    return _probe_sorted(sk, sid, pk, pid_, capacity, compact_step)
+    return _probe_sorted(sk, sid, pk, pid_, capacity)
 
 
 def make_shuffle_join_pipelined_fn(
@@ -255,12 +187,11 @@ def make_shuffle_join_pipelined_fn(
     send_cap_s: int,
     chunk_result_cap: int,
     num_chunks: int = 2,
-    compact_step: int | None = None,
 ):
     """Pipelined shuffle-join step: the probe side is exchanged in
     ``num_chunks`` slices, and slice c's all_to_all carries no data
     dependency on slice c-1's local join — XLA's async collectives can
-    overlap the ICI/DCN exchange with probe compute (the double-buffered
+    overlap the exchange with probe compute (the double-buffered
     overlap BASELINE.json's north star asks for). The build side is
     exchanged and sorted once up front; splitters come from the sorted
     build quantiles plus a strided sample of the (unsorted) full probe
@@ -269,7 +200,7 @@ def make_shuffle_join_pipelined_fn(
     Local probe shards must be divisible by num_chunks (driver pads).
     Returns per-chunk padded results stacked on a leading axis, per-device
     per-chunk counts, and the overflow telemetry vector
-    [send_r, send_s, result, compact_fits]."""
+    [send_r, send_s, result]."""
     num_peers = mesh.shape[ROW_AXIS]
 
     def shard_fn(r_keys, r_ids, s_keys, s_ids):
@@ -307,19 +238,17 @@ def make_shuffle_join_pipelined_fn(
                     jax.lax.all_to_all(sends[0][1], ROW_AXIS, 0, 0))
         outs = []
         totals = []
-        cfits = jnp.bool_(True)
         for c in range(num_chunks):
             if c + 1 < num_chunks:
                 recvs[c + 1] = (
                     jax.lax.all_to_all(sends[c + 1][0], ROW_AXIS, 0, 0),
                     jax.lax.all_to_all(sends[c + 1][1], ROW_AXIS, 0, 0))
             pk_c, pi_c = recvs[c]
-            r_out, s_out, tot, cf = _probe_sorted(
+            r_out, s_out, tot = _probe_sorted(
                 sk, sid, pk_c.reshape(-1), pi_c.reshape(-1),
-                chunk_result_cap, compact_step)
+                chunk_result_cap)
             outs.append((r_out, s_out))
             totals.append(tot)
-            cfits = jnp.logical_and(cfits, cf)
 
         r_stack = jnp.concatenate([o[0] for o in outs])
         s_stack = jnp.concatenate([o[1] for o in outs])
@@ -328,7 +257,6 @@ def make_shuffle_join_pipelined_fn(
             jax.lax.pmax(r_max, ROW_AXIS),
             jax.lax.pmax(s_max, ROW_AXIS),
             jax.lax.pmax(jnp.max(totals), ROW_AXIS),
-            jax.lax.pmin(cfits.astype(jnp.int32), ROW_AXIS),
         ])
         return r_stack, s_stack, totals, ovf
 
@@ -337,21 +265,20 @@ def make_shuffle_join_pipelined_fn(
         mesh=mesh,
         in_specs=(P(ROW_AXIS), P(ROW_AXIS), P(ROW_AXIS), P(ROW_AXIS)),
         out_specs=(P(ROW_AXIS), P(ROW_AXIS), P(ROW_AXIS), P()),
-        # Pallas kernels inside the shard have no vma annotations
         check_vma=False,
     )
     return jax.jit(fn)
 
 
 def make_splitter_stats_fn(mesh):
-    """Capacity pre-pass (VERDICT r4 #7): sort each shard locally, agree
+    """Capacity pre-pass: sort each shard locally, agree
     the splitters, and report the EXACT per-peer segment maxima — so the
     driver sizes send buffers from measured counts instead of a blanket
     slack factor. The sorted shards and splitters are returned and fed
     straight into :func:`make_shuffle_join_presorted_fn`; the sort is NOT
-    repeated (the pre-pass costs one extra HBM round trip of the sorted
-    columns, ~4 ms at 100M rows, against the ~15% the 1.25x blanket slack
-    cost the exchange).
+    repeated (the pre-pass costs one extra device-memory round trip of the
+    sorted columns, against the oversized exchange a blanket slack factor
+    costs).
 
     Returns fn(r_keys, r_ids, s_keys, s_ids) ->
     (rk_s, ri_s, sk_s, si_s, spl, maxes) with maxes = [max_r_segment,
@@ -388,7 +315,6 @@ def make_shuffle_join_presorted_fn(
     send_cap_r: int,
     send_cap_s: int,
     local_result_cap: int,
-    compact_step: int | None = None,
 ):
     """The exchange+join step on PRE-SORTED shards and agreed splitters
     (the outputs of :func:`make_splitter_stats_fn`): pack, all_to_all,
@@ -404,13 +330,12 @@ def make_shuffle_join_presorted_fn(
             sk_s, si_s, spl, num_peers, send_cap_s, _PROBE_PAD_KEY,
             _n_real(si_s))
         sk, sid = _sort_build(rbk, rbi)
-        r_ids_out, s_ids_out, local_total, cfits = _probe_sorted(
-            sk, sid, sbk, sbi, local_result_cap, compact_step)
+        r_ids_out, s_ids_out, local_total = _probe_sorted(
+            sk, sid, sbk, sbi, local_result_cap)
         ovf = jnp.stack([
             jax.lax.pmax(r_max, ROW_AXIS),
             jax.lax.pmax(s_max, ROW_AXIS),
             jax.lax.pmax(local_total, ROW_AXIS),
-            jax.lax.pmin(cfits.astype(jnp.int32), ROW_AXIS),
         ])
         return r_ids_out, s_ids_out, local_total[None], ovf
 
@@ -430,20 +355,12 @@ def make_shuffle_join_fn(
     send_cap_r: int,
     send_cap_s: int,
     local_result_cap: int,
-    compact_step: int | None = None,
 ):
     """Build the shard_map'd distributed join step for a given mesh + static
     capacities. Returns fn(r_keys, r_ids, s_keys, s_ids) operating on
     row-sharded global arrays, yielding row-sharded padded results plus
     per-device exact counts and the overflow telemetry vector
-    [send_r, send_s, result, compact_fits].
-
-    ``compact_step`` routes the local compaction through the Pallas
-    stream-compaction kernel at that static output width (pick with
-    kernels.compact.pick_out_step from the expected local selectivity);
-    telemetry slot 3 carries the pmin'd coverage flag and the driver
-    retries with None on a miss — the same fits contract as
-    ops.merge_join.probe_materialize."""
+    [send_r, send_s, result]."""
     num_peers = mesh.shape[ROW_AXIS]
 
     def shard_fn(r_keys, r_ids, s_keys, s_ids):
@@ -462,14 +379,13 @@ def make_shuffle_join_fn(
             _n_real(si_s))
 
         sk, sid = _sort_build(rbk, rbi)
-        r_ids_out, s_ids_out, local_total, cfits = _probe_sorted(
-            sk, sid, sbk, sbi, local_result_cap, compact_step)
-        # telemetry: [send_r ovf, send_s ovf, result ovf, compact fits]
+        r_ids_out, s_ids_out, local_total = _probe_sorted(
+            sk, sid, sbk, sbi, local_result_cap)
+        # telemetry: [send_r ovf, send_s ovf, result ovf]
         ovf = jnp.stack([
             jax.lax.pmax(r_max, ROW_AXIS),
             jax.lax.pmax(s_max, ROW_AXIS),
             jax.lax.pmax(local_total, ROW_AXIS),
-            jax.lax.pmin(cfits.astype(jnp.int32), ROW_AXIS),
         ])
         return r_ids_out, s_ids_out, local_total[None], ovf
 
@@ -478,7 +394,6 @@ def make_shuffle_join_fn(
         mesh=mesh,
         in_specs=(P(ROW_AXIS), P(ROW_AXIS), P(ROW_AXIS), P(ROW_AXIS)),
         out_specs=(P(ROW_AXIS), P(ROW_AXIS), P(ROW_AXIS), P()),
-        # Pallas kernels inside the shard have no vma annotations
         check_vma=False,
     )
     return jax.jit(fn)
@@ -514,10 +429,9 @@ def make_shuffle_join_rle_fn(mesh, send_cap_r: int, send_cap_s: int):
             sk_s, si_s, spl, num_peers, send_cap_s, _PROBE_PAD_KEY,
             _n_real(si_s))
         sk, sid = _sort_build(rbk, rbi)
-        _, ppid, lo, cnt = _count_sorted(sk, sbk, sbi)
-        from tpujoin.ops.merge_join import exact_sum_i32
+        ppid, lo, cnt = _count_sorted(sk, sbk, sbi)
         with jax.enable_x64(True):
-            pairs = exact_sum_i32(cnt)
+            pairs = jnp.sum(cnt.astype(jnp.int64))
             pair_lo = (pairs & jnp.int64((1 << 30) - 1)).astype(jnp.int32)
             pair_hi = (pairs >> 30).astype(jnp.int32)
         ovf = jnp.stack([jax.lax.pmax(r_max, ROW_AXIS),
@@ -613,7 +527,7 @@ def make_shuffle_semi_fn(mesh, send_cap_r: int, send_cap_s: int):
             sk_s, si_s, spl, num_peers, send_cap_s, _PROBE_PAD_KEY,
             _n_real(si_s))
         sk, _ = _sort_build(rbk, rbi)
-        _, ppid, _, cnt = _count_sorted(sk, sbk, sbi)
+        ppid, _, cnt = _count_sorted(sk, sbk, sbi)
         matched = (cnt > 0).astype(jnp.int32)
         ovf = jnp.stack([jax.lax.pmax(r_max, ROW_AXIS),
                          jax.lax.pmax(s_max, ROW_AXIS)])
@@ -687,6 +601,14 @@ def _pad_sharded(a, ids, mult):
             np.concatenate([ids, np.full(pad_n, -1, np.int32)]))
 
 
+def _coarse_cap(rows: int) -> int:
+    """Send capacity for ``rows`` measured rows: 64 rows of headroom,
+    rounded up to a granule of ~1/64 of the size (at least 256), so
+    reruns on similar data hit the same compiled executable."""
+    need = rows + 64
+    return round_up(need, max(256, 1 << max(need.bit_length() - 7, 0)))
+
+
 def recommended_slack(distribution: str = "uniform") -> float:
     """Send-segment slack factor over the balanced expectation n_local/P.
     Splitter sampling balances row counts to ~1% on uniform keys; Zipf
@@ -695,20 +617,6 @@ def recommended_slack(distribution: str = "uniform") -> float:
     skew path replicates them). The driver's retry loop covers the tail
     either way."""
     return 1.25 if distribution == "uniform" else 4.0
-
-
-def local_compact_step(rows_per_device: int,
-                       expected_matches_per_device: int) -> int | None:
-    """Pick the Pallas compaction kernel's static output width for the
-    distributed local join from driver-known expectations (the SPMD analogue
-    of ops.merge_join's host-side pick after the count phase — inside
-    shard_map nothing is host-readable, so the choice rides on expected
-    selectivity and the psum'd coverage flag guards the tail)."""
-    from tpujoin.kernels.compact import pick_out_step
-
-    if expected_matches_per_device <= 0 or rows_per_device <= 0:
-        return None
-    return pick_out_step(rows_per_device, expected_matches_per_device)
 
 
 def distributed_hash_join(
@@ -721,7 +629,6 @@ def distributed_hash_join(
     max_retries: int = 3,
     skew: bool = False,
     pipeline_chunks: int = 1,
-    compact_step: int | None = None,
     auto_caps: bool = True,
 ):
     """Driver: exact-size distributed equi-join over all mesh devices.
@@ -730,16 +637,12 @@ def distributed_hash_join(
     (:mod:`tpujoin.parallel.skew`) — use for Zipf-like key distributions.
     ``pipeline_chunks > 1`` exchanges the probe side in that many slices
     with the collective for slice c+1 overlapping the local join of slice c.
-    ``compact_step`` (see :func:`local_compact_step`) opts the local
-    compaction into the Pallas kernel; the coverage flag in telemetry
-    falls back to the sort path on a miss.
 
     ``auto_caps`` (default, unpipelined path): size the send buffers from
     the EXACT psum'd segment maxima of a splitter-stats pre-pass instead
-    of ``slack`` x the balanced expectation (VERDICT r4 #7 — the default
-    path now gets the tuned-slack exchange for free; caps are rounded up
-    to a coarse granule so executables repeat across runs). ``slack``
-    then only sizes the result buffer estimate.
+    of ``slack`` x the balanced expectation; caps are rounded up to a
+    granule of ~1/64 of their size so executables repeat across runs.
+    ``slack`` then only sizes the result buffer estimate.
 
     Pads both tables to a multiple of the mesh size, row-shards them,
     runs the shuffle-join step, and trims each device's padded result to its
@@ -787,9 +690,8 @@ def distributed_hash_join(
         stats_fn = make_splitter_stats_fn(mesh)
         rk_s, ri_s, sk_s, si_s, spl, maxes = stats_fn(rk, ri, sk, si)
         maxes_np = np.asarray(maxes)
-        granule = 1 << 16 if jax.default_backend() != "cpu" else 256
-        cap_r = round_up(int(maxes_np[0]) + 64, granule)
-        cap_s = round_up(int(maxes_np[1]) + 64, granule)
+        cap_r = _coarse_cap(int(maxes_np[0]))
+        cap_s = _coarse_cap(int(maxes_np[1]))
     else:
         cap_r = round_up(
             int(cdiv(len(np.asarray(rk)) // ndev, ndev) * slack) + 64, 64)
@@ -803,25 +705,16 @@ def distributed_hash_join(
     while True:
         if nchunks > 1:
             fn = make_shuffle_join_pipelined_fn(mesh, cap_r, cap_s, cap_res,
-                                                num_chunks=nchunks,
-                                                compact_step=compact_step)
+                                                num_chunks=nchunks)
             r_out, s_out, totals, ovf = fn(rk, ri, sk, si)
         elif use_auto:
-            fn = make_shuffle_join_presorted_fn(mesh, cap_r, cap_s, cap_res,
-                                                compact_step=compact_step)
+            fn = make_shuffle_join_presorted_fn(mesh, cap_r, cap_s, cap_res)
             r_out, s_out, totals, ovf = fn(rk_s, ri_s, sk_s, si_s, spl)
         else:
-            fn = make_shuffle_join_fn(mesh, cap_r, cap_s, cap_res,
-                                      compact_step=compact_step)
+            fn = make_shuffle_join_fn(mesh, cap_r, cap_s, cap_res)
             r_out, s_out, totals, ovf = fn(rk, ri, sk, si)
         ovf = np.asarray(ovf)
         if ovf[0] <= cap_r and ovf[1] <= cap_s and ovf[2] <= cap_res:
-            if compact_step is not None and ovf[3] == 0:
-                # coverage miss -> sort fallback; does NOT consume a
-                # capacity retry (the fallback always covers, and this
-                # branch can fire at most once — compact_step goes None)
-                compact_step = None
-                continue
             break
         if cap_retries == 0:
             raise RuntimeError(

@@ -1,8 +1,8 @@
 """Skew-aware distributed shuffle join: heavy-hitter splitting.
 
-BASELINE.json config 5 ("Skewed Zipf(1.0) key join at pod-slice scale with
-heavy-hitter splitting"). Plain hash partitioning sends every row of a key
-to one device, so a Zipf head key overloads one chip (the reference has the
+BASELINE.json config 5 ("Skewed Zipf(1.0) key join across 4 cards with
+heavy-hitter splitting"). Plain hash partitioning sends every row of a key to one
+device, so a Zipf head key overloads one device (the reference has the
 same pathology in miniature: its bucket chains grow with duplication,
 join_v1.mlir:342-367 — and "Skewed datasets" is on its future-work list,
 projectDescription.md:26).
@@ -33,25 +33,23 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
+from tpujoin.ops.hash_join import ranks
 from tpujoin.ops.radix import partition_ids
 from tpujoin.parallel.mesh import ROW_AXIS, make_mesh
 from tpujoin.parallel.shuffle_join import (
     _BUILD_PAD_KEY,
     _PROBE_PAD_KEY,
+    _SU,
     _local_join,
 )
 from tpujoin.utils.shapes import round_up
-
-_SS = "sort"
 
 
 def _local_top_keys(keys, ids, h: int, pad_key):
     """Top-h locally most frequent keys (pad_key where fewer)."""
     valid = jnp.where(ids >= 0, keys, pad_key)
     sk = jax.lax.sort(valid, is_stable=False)
-    lo = jnp.searchsorted(sk, sk, side="left", method=_SS)
-    hi = jnp.searchsorted(sk, sk, side="right", method=_SS)
-    cnt = (hi - lo).astype(jnp.int32)
+    _, cnt = ranks(sk, sk)
     is_first = jnp.concatenate(
         [jnp.ones((1,), jnp.bool_), sk[1:] != sk[:-1]])
     score = jnp.where(is_first & (sk != pad_key), cnt, 0)
@@ -59,12 +57,6 @@ def _local_top_keys(keys, ids, h: int, pad_key):
     top = jnp.take(sk, idx)
     topc = jnp.take(score, idx)
     return jnp.where(topc > 0, top, pad_key)
-
-
-def _counts_in(sorted_local, queries):
-    lo = jnp.searchsorted(sorted_local, queries, side="left", method=_SS)
-    hi = jnp.searchsorted(sorted_local, queries, side="right", method=_SS)
-    return (hi - lo).astype(jnp.int32)
 
 
 def _route_and_pack(keys, ids, rep_mask, spray_mask, num_peers: int,
@@ -85,10 +77,8 @@ def _route_and_pack(keys, ids, rep_mask, spray_mask, num_peers: int,
     # local join re-sorts received rows by key anyway)
     spid, skeys, sids = jax.lax.sort((pid, keys, ids), num_keys=1,
                                      is_stable=False)
-    bounds = jnp.arange(num_peers + 1, dtype=jnp.int32)
-    starts = jnp.searchsorted(spid, bounds, side="left", method=_SS).astype(jnp.int32)
-    ends = jnp.searchsorted(spid, bounds, side="right", method=_SS).astype(jnp.int32)
-    counts = ends - starts
+    starts, counts = ranks(spid, jnp.arange(num_peers + 1, dtype=jnp.int32),
+                           method=_SU)
 
     # contiguous per-peer slices, never a [P, C] element gather (see
     # shuffle_join._send_buffer): pad the tail so no slice clamps
@@ -147,8 +137,8 @@ def make_skew_join_fn(
                           is_stable=False)
         ss = jax.lax.sort(jnp.where(s_ids >= 0, s_keys, _BUILD_PAD_KEY),
                           is_stable=False)
-        gr = jax.lax.psum(_counts_in(sr, cand), ROW_AXIS)
-        gs = jax.lax.psum(_counts_in(ss, cand), ROW_AXIS)
+        gr = jax.lax.psum(ranks(sr, cand, method=_SU)[1], ROW_AXIS)
+        gs = jax.lax.psum(ranks(ss, cand, method=_SU)[1], ROW_AXIS)
 
         # heavy_factor is a float multiplier on the per-peer average row
         # count (1.5 means "1.5x the average"); apply it in f32 so
@@ -167,7 +157,7 @@ def make_skew_join_fn(
         mode = jnp.where(heavy, jnp.where(gr <= gs, 1, 2), 0).astype(jnp.int32)
 
         def lookup_mode(keys):
-            slot = jnp.searchsorted(cand, keys, side="left", method=_SS)
+            slot = jnp.searchsorted(cand, keys, side="left", method=_SU)
             slot = jnp.clip(slot, 0, cand.shape[0] - 1)
             found = jnp.take(cand, slot) == keys
             return jnp.where(found, jnp.take(mode, slot), 0)
@@ -197,8 +187,8 @@ def make_skew_join_fn(
         pk = jnp.concatenate([sbk.reshape(-1), srk_g])
         pi = jnp.concatenate([sbi.reshape(-1), sri_g])
 
-        r_out, s_out, local_total, _cfits = _local_join(bk, bi, pk, pi,
-                                                        local_result_cap)
+        r_out, s_out, local_total = _local_join(bk, bi, pk, pi,
+                                                local_result_cap)
         ovf = jnp.stack([
             jax.lax.pmax(r_max, ROW_AXIS),
             jax.lax.pmax(s_max, ROW_AXIS),
@@ -213,13 +203,12 @@ def make_skew_join_fn(
         mesh=mesh,
         in_specs=(P(ROW_AXIS), P(ROW_AXIS), P(ROW_AXIS), P(ROW_AXIS)),
         out_specs=(P(ROW_AXIS), P(ROW_AXIS), P(ROW_AXIS), P()),
-        # Pallas kernels inside the shard have no vma annotations
         check_vma=False,
     )
     return jax.jit(fn)
 
 
-def distributed_hash_join_skew(
+def run_skew_join(
     r_keys,
     s_keys,
     *,
@@ -229,8 +218,12 @@ def distributed_hash_join_skew(
     max_retries: int = 4,
     top_h: int = 64,
 ):
-    """Driver: exact distributed join with heavy-hitter splitting.
-    Same contract as shuffle_join.distributed_hash_join."""
+    """Pad, row-shard and run the skew-aware join step, growing every
+    capacity the telemetry says overflowed. Returns the row-sharded
+    padded results (r_out, s_out, totals) and the final telemetry vector
+    [send_r, send_s, result, rep_r, rep_s] as host numpy: rep_r / rep_s
+    are the most build / probe rows one device replicated (zero when no
+    key was heavy)."""
     if mesh is None:
         mesh = make_mesh()
     ndev = mesh.shape[ROW_AXIS]
@@ -266,15 +259,24 @@ def distributed_hash_join_skew(
         ovf = np.asarray(ovf)
         if (ovf[0] <= cap_r and ovf[1] <= cap_s and ovf[2] <= cap_res
                 and ovf[3] <= rep_r and ovf[4] <= rep_s):
-            break
+            return r_out, s_out, totals, ovf
         cap_r = max(cap_r, round_up(int(ovf[0]), 64))
         cap_s = max(cap_s, round_up(int(ovf[1]), 64))
         cap_res = max(cap_res, round_up(int(ovf[2]), 64))
         rep_r = max(rep_r, round_up(int(ovf[3]), 64))
         rep_s = max(rep_s, round_up(int(ovf[4]), 64))
-    else:
-        raise RuntimeError(f"skew join capacities did not converge: {ovf}")
+    raise RuntimeError(f"skew join capacities did not converge: {ovf}")
 
+
+def distributed_hash_join_skew(r_keys, s_keys, *, mesh=None, **kwargs):
+    """Driver: exact distributed join with heavy-hitter splitting.
+    Same contract as shuffle_join.distributed_hash_join; ``kwargs`` are
+    those of :func:`run_skew_join`."""
+    if mesh is None:
+        mesh = make_mesh()
+    ndev = mesh.shape[ROW_AXIS]
+    r_out, s_out, totals, _ = run_skew_join(r_keys, s_keys, mesh=mesh,
+                                            **kwargs)
     r_out = np.asarray(r_out).reshape(ndev, -1)
     s_out = np.asarray(s_out).reshape(ndev, -1)
     totals = np.asarray(totals).reshape(-1)
